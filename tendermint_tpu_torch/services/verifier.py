@@ -1,0 +1,322 @@
+"""BatchVerifier: accumulate→flush ed25519 verification service.
+
+Counterpart of `tendermint_tpu/services/verifier.py`'s single-device
+backends:
+
+* `verify_batch(triples)` — synchronous batch verdicts;
+* `add(pk, msg, sig)` / `flush()` — accumulation across call sites,
+  flushed as one batch with per-item verdicts.
+
+Backends: `HostBatchVerifier` (sequential pure-Python RFC 8032),
+`DeviceBatchVerifier` (the generic ladder, `ops.ed25519_kernel`, padded
+to power-of-two buckets) and `TableBatchVerifier` (cached per-validator
+comb tables, `ops.ed25519_tables`: the consensus and fast-sync path).
+
+Device backends run on the CUDA card unless constructed with
+`device="cpu"`; without a card and without a device they raise. A
+device failure raises to the caller: nothing here reroutes to host
+crypto.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import threading
+from collections import OrderedDict
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tendermint_tpu_torch.crypto.keys import PUBKEY_LEN, PubKey
+from tendermint_tpu_torch.device import resolve_device
+from tendermint_tpu_torch.ops.ed25519_kernel import (
+    launch_batch_verify,
+    materialize_batch_verify,
+)
+from tendermint_tpu_torch.ops.ed25519_tables import (
+    build_key_tables,
+    host_build_key_tables,
+    prepare_commit_lanes,
+    verify_tables_kernel,
+)
+
+Triple = tuple[bytes, bytes, bytes]  # (pubkey32, message, signature64)
+
+
+class BatchVerifier:
+    """Interface + shared accumulate/flush bookkeeping."""
+
+    def verify_batch(self, triples: Sequence[Triple]) -> np.ndarray:
+        raise NotImplementedError
+
+    def __init__(self) -> None:
+        self._pending: list[Triple] = []
+
+    def add(self, pubkey: bytes, msg: bytes, sig: bytes) -> int:
+        """Queue a triple; returns its index into the next flush()'s mask."""
+        self._pending.append((pubkey, msg, sig))
+        return len(self._pending) - 1
+
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def flush(self) -> np.ndarray:
+        """Verify everything queued since the last flush; per-item verdicts."""
+        triples, self._pending = self._pending, []
+        if not triples:
+            return np.zeros(0, dtype=bool)
+        return self.verify_batch(triples)
+
+    def verify_one(self, pubkey: bytes, msg: bytes, sig: bytes) -> bool:
+        return bool(self.verify_batch([(pubkey, msg, sig)])[0])
+
+    # Backends split a verify into `launch` (host prep + kernel launch —
+    # the card computes in the background) and `finalize` (copy back +
+    # mask). The base implementation has no device half.
+
+    def launch_verify_batch(self, triples: Sequence[Triple]):
+        return self.verify_batch(triples)
+
+    def finalize_verify_batch(self, launched) -> np.ndarray:
+        return launched
+
+
+class HostBatchVerifier(BatchVerifier):
+    """Sequential host backend over the pure-Python `PubKey`."""
+
+    def verify_batch(self, triples: Sequence[Triple]) -> np.ndarray:
+        out = np.zeros(len(triples), dtype=bool)
+        for i, (pk, msg, sig) in enumerate(triples):
+            if len(pk) != PUBKEY_LEN:
+                continue
+            out[i] = PubKey(pk).verify(msg, sig)
+        return out
+
+
+# Below this many lanes the host answers: single votes and small commits
+# must never wait on a kernel launch (the consensus hot path verifies one
+# gossiped vote at a time).
+DEVICE_MIN_BATCH = int(os.environ.get("TENDERMINT_TPU_MIN_DEVICE_BATCH", "512"))
+
+
+class DeviceBatchVerifier(BatchVerifier):
+    """Batched backend over `ops.ed25519_kernel.launch_batch_verify`.
+
+    Batches are padded to power-of-two buckets (min 8) inside the
+    launch; on the card every bucket takes the ladder kernel. Batches
+    smaller than DEVICE_MIN_BATCH go to the host verifier.
+    """
+
+    def __init__(self, device=None, min_device_batch: int | None = None) -> None:
+        super().__init__()
+        self.device = resolve_device(device)
+        self._host = HostBatchVerifier()
+        self._min_batch = (
+            DEVICE_MIN_BATCH if min_device_batch is None else min_device_batch
+        )
+
+    def verify_batch(self, triples: Sequence[Triple]) -> np.ndarray:
+        return self.finalize_verify_batch(self.launch_verify_batch(triples))
+
+    def launch_verify_batch(self, triples: Sequence[Triple]):
+        """Host prep + kernel launch; the verdict tensor is not yet
+        synchronised (sub-minimum batches answer on the host at once)."""
+        if not triples:
+            return ("host", np.zeros(0, dtype=bool))
+        if len(triples) < self._min_batch:
+            return ("host", self._host.verify_batch(triples))
+        pubs, msgs, sigs = zip(*triples)
+        launched = launch_batch_verify(
+            list(pubs), list(msgs), list(sigs), device=self.device
+        )
+        return ("device", launched)
+
+    def finalize_verify_batch(self, launched) -> np.ndarray:
+        if launched[0] == "host":
+            return launched[1]
+        return materialize_batch_verify(launched[1])
+
+
+class TableBatchVerifier(DeviceBatchVerifier):
+    """Validator-set-table backend: the steady-state consensus path.
+
+    Commit-shaped verification (lanes aligned to a known validator set)
+    routes through per-validator comb tables (`ops.ed25519_tables`)
+    built on the card once per validator set and cached by the SHA-256
+    of its pubkey sequence. One launch verifies K stacked commits: stacks
+    of K >= FUSED_MIN_STACK (fast-sync windows) take the fused kernel,
+    single commits and small stacks the entries chain.
+    """
+
+    # diffs up to this many new keys build on the host (Python ints, no
+    # device work); larger diffs build the missing keys on the device
+    MAX_INCREMENTAL_KEYS = 128
+
+    def __init__(
+        self,
+        device=None,
+        cache_size: int = 4,
+        min_device_batch: int | None = None,
+    ) -> None:
+        super().__init__(device, min_device_batch)
+        # key -> (pubkeys tuple, tables, ok)
+        self._tables: "OrderedDict[bytes, tuple]" = OrderedDict()
+        self._cache_size = cache_size
+        self._cache_lock = threading.RLock()
+
+    @staticmethod
+    def _cache_key(pubkeys: tuple[bytes, ...]) -> bytes:
+        return hashlib.sha256(b"".join(pubkeys)).digest()
+
+    def _incremental_build(self, pubkeys: tuple[bytes, ...]):
+        """Assemble tables for `pubkeys` from the cached set with the
+        largest overlap: gather the shared columns on the device, build
+        only the new keys. Returns None when no cached set shares a key
+        (validator-set diffs touch few keys, so turnover is usually
+        tiny)."""
+        with self._cache_lock:
+            best = None
+            for _k, (old_pubs, old_t, old_ok) in self._tables.items():
+                pos = {pk: i for i, pk in enumerate(old_pubs)}
+                hits = sum(1 for pk in pubkeys if pk in pos)
+                if best is None or hits > best[0]:
+                    best = (hits, pos, old_t, old_ok)
+        if best is None or best[0] == 0:
+            return None
+        _hits, pos, old_t, old_ok = best
+        missing = [pk for pk in pubkeys if pk not in pos]
+        if missing:
+            if len(missing) <= self.MAX_INCREMENTAL_KEYS:
+                new_t, new_ok = host_build_key_tables(missing)
+                new_t = torch.from_numpy(new_t).to(self.device)
+            else:
+                miss_arr = np.frombuffer(b"".join(missing), dtype=np.uint8)
+                new_t, new_ok = build_key_tables(
+                    miss_arr.reshape(-1, 32), device=self.device
+                )
+            combined = torch.cat([old_t, new_t], dim=3)
+            ok_comb = np.concatenate([old_ok, new_ok])
+        else:  # same keys, different order/subset: pure gather
+            combined, ok_comb = old_t, old_ok
+        new_pos = {pk: i for i, pk in enumerate(missing)}
+        n_old = len(pos)
+        perm = np.array(
+            [pos.get(pk, n_old + new_pos.get(pk, 0)) for pk in pubkeys],
+            dtype=np.int64,
+        )
+        tables = torch.index_select(
+            combined, 3, torch.from_numpy(perm).to(self.device)
+        ).contiguous()
+        return tables, ok_comb[perm]
+
+    def tables_for(self, pubkeys: tuple[bytes, ...]):
+        """(tables on the device, ok numpy) for a validator set: from the
+        cache, else built (and cached) now."""
+        key = self._cache_key(pubkeys)
+        with self._cache_lock:
+            hit = self._tables.get(key)
+            if hit is not None:
+                self._tables.move_to_end(key)
+                return hit[1], hit[2]
+        tables, ok = self._build_tables(pubkeys)
+        with self._cache_lock:
+            self._tables[key] = (tuple(pubkeys), tables, ok)
+            while len(self._tables) > self._cache_size:
+                self._tables.popitem(last=False)
+        return tables, ok
+
+    def _build_tables(self, pubkeys: tuple[bytes, ...]):
+        """Tables for an uncached set: incremental when a cached set
+        overlaps, else one device build."""
+        built = self._incremental_build(pubkeys)
+        if built is not None:
+            return built
+        pub = np.frombuffer(b"".join(pubkeys), dtype=np.uint8).reshape(
+            len(pubkeys), 32
+        )
+        return build_key_tables(pub, device=self.device)
+
+    def prebuild(self, pubkeys) -> None:
+        """Warm the table cache for a validator set in the background —
+        called when a rotation is decided, so the first verify against
+        the next set doesn't stall on a build."""
+        pubs = tuple(bytes(pk) for pk in pubkeys)
+        if self._cache_key(pubs) in self._tables:
+            return
+        threading.Thread(target=lambda: self.tables_for(pubs), daemon=True).start()
+
+    def verify_commits(
+        self,
+        pubkeys: Sequence[bytes],
+        commits: Sequence[tuple[Sequence[bytes | None], Sequence[bytes | None]]],
+    ) -> np.ndarray:
+        """K commits over one N-validator set -> (K, N) bool verdicts.
+
+        Each commit is (msgs, sigs): length-N sequences aligned to
+        validator index, None marking absent votes (absent lanes report
+        False). The K*N lanes verify in one launch against the cached
+        tables; fast-sync stacks a window of commits into one call, and
+        the stack depth picks the chain (`verify_tables_kernel`)."""
+        return self.finalize_verify_commits(self.launch_verify_commits(pubkeys, commits))
+
+    def launch_verify_commits(self, pubkeys, commits):
+        """Async half of `verify_commits`: lane prep + one kernel launch,
+        the verdict tensor not yet synchronised. Small commits compute on
+        the host on the spot and tag themselves "host"."""
+        n = len(pubkeys)
+        k = len(commits)
+        if n == 0 or k == 0:
+            return ("host", np.zeros((k, n), dtype=bool))
+        if k * n < self._min_batch:
+            return ("host", self._host_commit_loop(pubkeys, commits))
+        # malformed pubkeys degrade to a False verdict (matching every
+        # other backend) instead of corrupting the table build
+        length_ok = np.array([len(pk) == 32 for pk in pubkeys], dtype=bool)
+        if not length_ok.all():
+            placeholder = b"\x01" + b"\x00" * 31  # identity point encoding
+            pubkeys = [pk if ok else placeholder for pk, ok in zip(pubkeys, length_ok)]
+        tables, key_ok = self.tables_for(tuple(pubkeys))
+        key_ok = key_ok & length_ok
+        s, h, r, precheck = prepare_commit_lanes(pubkeys, commits)
+        s, h, r = (torch.from_numpy(a).to(self.device) for a in (s, h, r))
+        dev = verify_tables_kernel(tables, s, h, r)
+        return ("device", dev, precheck, key_ok, n, k)
+
+    def finalize_verify_commits(self, launched) -> np.ndarray:
+        if launched[0] == "host":
+            return launched[1]
+        _tag, dev, precheck, key_ok, n, k = launched
+        out = dev.cpu().numpy() & precheck & np.tile(key_ok, k)
+        return out.reshape(k, n)
+
+    def _host_commit_loop(self, pubkeys, commits) -> np.ndarray:
+        """Sequential host verification of commit-shaped lanes (the
+        small-commit path)."""
+        n = len(pubkeys)
+        out = np.zeros((len(commits), n), dtype=bool)
+        for ci, (msgs, sigs) in enumerate(commits):
+            lanes = [i for i in range(n) if msgs[i] is not None and sigs[i] is not None]
+            lane_triples = [(pubkeys[i], msgs[i], sigs[i]) for i in lanes]
+            if lane_triples:
+                verdicts = self._host.verify_batch(lane_triples)
+                for i, v in zip(lanes, verdicts):
+                    out[ci, i] = v
+        return out
+
+
+_DEFAULTS: dict[torch.device, TableBatchVerifier] = {}
+_DEFAULTS_LOCK = threading.Lock()
+
+
+def default_verifier(device=None) -> TableBatchVerifier:
+    """Process-wide verifier, one per device: a `TableBatchVerifier` on
+    the card (or on `device` when given), so its table cache is shared
+    by every caller. Raises when no card is present and no device was
+    given."""
+    dev = resolve_device(device)
+    with _DEFAULTS_LOCK:
+        if dev not in _DEFAULTS:
+            _DEFAULTS[dev] = TableBatchVerifier(device=dev)
+        return _DEFAULTS[dev]
