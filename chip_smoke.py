@@ -16,14 +16,17 @@ bytes):
 3. fast-sync window: 16 stacked commits of a 1000-validator set — the
    fused kernel (`madd_chain_fused`);
 4. flat batch: `verify_batch` on 4096 triples with distinct keys — the
-   generic ladder kernel (`ladder`);
+   `ladder` kernel (decompression, [h](-A) and [S]B in one kernel);
 1. kernel vs plain: each kernel against its plain torch version on the
    card, on the inputs its phase gave it (the entries chain also at the
-   flat batch's 4096 lanes), compared exactly on the canonical
-   coordinates and the verdicts (everything is an integer: tolerance
-   0); then a per-stage breakdown of one call of each phase, the
-   card's kernel time in one call of each phase (torch.profiler), and
-   each kernel and plain version timed with CUDA events.
+   flat batch's 4096 lanes), compared exactly on the canonical affine
+   coordinates (x, y), T * Z == X * Y, the verdicts and, for the
+   ladder, a_ok (everything is an integer: tolerance 0); then a
+   per-stage breakdown of one call of each phase, the card's kernel
+   time in one call of each phase (torch.profiler) and the flat
+   prologue's kernel count, and each kernel and plain version timed
+   with CUDA events. Each kernel's bound counts 100 limb products a
+   field multiply (FE_MULS_PER_LANE).
 
 Every phase plants a forged signature, an absent vote, an S >= L, an
 invalid pubkey encoding and a wrong-length signature, and its verdicts
@@ -54,12 +57,27 @@ import numpy as np
 MSG_LEN = 241
 INT32_LANES_PER_SM_CLOCK = 64  # Hopper white paper: 64 INT32 lanes per SM
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-MADDS_PER_FE_MUL = 400  # 20 x 20 schoolbook limb products
+# One rule for every kernel's bound: a field multiply counts 100 limb
+# products (10 x 10 in radix 2^26), whatever limbs the kernel uses
+# (madd_chain_entries still multiplies 20 x 20 of radix 2^13).
+PRODUCTS_PER_FE_MUL = 100
+# field multiplies a lane of the ladder kernel runs (csrc/ladder.cu)
+LADDER_FE_MULS = {
+    "decompress": 275,  # y^2, d y^2, v^3, v^7, the 262 of the p58 chain, x^2, ...
+    "table": 1 + 15 * (8 + 1),  # -A cached, 15 additions, each cached
+    "doublings": 63 * (3 * 7 + 8),  # 4 a window, T only before an addition
+    "window_adds": 64 * 8,
+    "comb": 64 * 7,
+    "join": 1 + 8,
+}
 FE_MULS_PER_LANE = {
     "madd_chain_entries": 96 * 7,
-    "madd_chain_fused": 128 * 7,
-    "ladder": 253 * (8 + 7),
+    "madd_chain_fused": 128 * 7 + 9,  # two 64-step halves and one addition
+    "ladder": sum(LADDER_FE_MULS.values()),
 }
+# kernels a flat call ran when torch decompressed A, built B - A and
+# inverted before the ladder (PERF.md, run F)
+EAGER_PROLOGUE_FLAT_CALL_KERNELS = 33818
 KERNEL_INFO = {
     "madd_chain_entries": (
         "tendermint_tpu_torch/csrc/madd_chain.cu",
@@ -196,32 +214,44 @@ def reset_counts() -> None:
     sum_entries.launches = fused_chain.launches = ladder.launches = 0
 
 
-def canonical(point):
-    """Canonical limbs of the four projective coordinates, stacked."""
+def affine(point):
+    """Canonical affine (x, y) = (X/Z, Y/Z) of every lane, stacked, and
+    whether T * Z == X * Y holds on every lane."""
     import torch
 
-    from tendermint_tpu_torch.ops.ed25519_kernel import fe_canon
+    from tendermint_tpu_torch.ops.ed25519_kernel import fe_canon, fe_carry, fe_eq, fe_mul
+    from tendermint_tpu_torch.ops.ed25519_tables import fe_batch_invert
 
-    return torch.stack([fe_canon(c.contiguous()) for c in point])
+    x, y, z, t = (c.contiguous() for c in point)
+    zinv = fe_batch_invert(fe_carry(z))
+    xy = torch.stack([fe_canon(fe_mul(x, zinv)), fe_canon(fe_mul(y, zinv))])
+    return xy, bool(fe_eq(fe_mul(t, z), fe_mul(x, y)).all())
 
 
-def compare(name, kernel_out, plain_out, r) -> int:
+def compare(name, kernel_out, plain_out, r, a_ok=None) -> int:
     """Exact comparison of a kernel's output with its plain version:
-    canonical X, Y, Z, T and the encode-and-compare verdicts. Returns
-    the max absolute difference (0 when they agree)."""
+    canonical affine x, y (the kernels add in another order, so their
+    projective coordinates differ), T * Z == X * Y, the
+    encode-and-compare verdicts and, for the ladder, a_ok (a pair:
+    kernel's, plain version's). Returns the max absolute difference of
+    the affine coordinates (0 when they agree)."""
     from tendermint_tpu_torch.ops.ed25519_tables import _finish_encode_compare
 
-    ck, cp = canonical(kernel_out), canonical(plain_out)
-    err = int((ck - cp).abs().max().item())
+    (ak, tz_k), (ap, tz_p) = affine(kernel_out), affine(plain_out)
+    err = int((ak - ap).abs().max().item())
     vk = _finish_encode_compare(*kernel_out[:3], r)
     vp = _finish_encode_compare(*plain_out[:3], r)
-    if err != 0 or not bool((vk == vp).all()):
-        raise AssertionError(f"{name}: kernel disagrees with its plain version (max_abs_err={err})")
+    same_ok = a_ok is None or bool((a_ok[0] == a_ok[1]).all())
+    if err != 0 or not (tz_k and tz_p and same_ok) or not bool((vk == vp).all()):
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version (max_abs_err={err}, "
+            f"T*Z == X*Y: {tz_k}/{tz_p}, a_ok equal: {same_ok})"
+        )
     return err
 
 
 def bound_ms(name: str, lanes: int, nbytes: int, clock_hz: float, sms: int) -> tuple[float, str]:
-    ops = lanes * FE_MULS_PER_LANE[name] * MADDS_PER_FE_MUL
+    ops = lanes * FE_MULS_PER_LANE[name] * PRODUCTS_PER_FE_MUL
     t_ops = ops / (INT32_LANES_PER_SM_CLOCK * sms * clock_hz)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -253,9 +283,9 @@ def stage_times(dev, verifier, path: str, pubs, commits) -> dict:
         mark("host_prep_s")
         pub, r, s, h = (torch.from_numpy(a).to(dev) for a in (pub, r, s, h))
         mark("to_device_s")
-        gtab, dig, a_ok = lad._build_inputs(pub, s, h)
+        dig = tab._digits_w4(s.to(torch.int32), h.to(torch.int32))
         mark("prologue_s")
-        x, y, z, _t = lad.ladder(gtab.contiguous(), dig)
+        (x, y, z, _t), a_ok = lad.ladder(pub, dig)
         mark("kernel_s")
         (tab._finish_encode_compare(x, y, z, r.to(torch.int32)) & a_ok).cpu()
         mark("finish_s")
@@ -507,14 +537,14 @@ def run(args) -> dict:
     # ladder at the flat batch's shape (the bucket of 4096 lanes)
     pub, rr, ss, hh, _pre = prepare_batch(pubs4, msgs4, sigs4)
     pub, rr, ss, hh = (torch.from_numpy(a).to(dev) for a in (pub, rr, ss, hh))
-    gtab, ldig, _a_ok = lad._build_inputs(pub, ss, hh)
-    gtab = gtab.contiguous()
+    ldig = tab._digits_w4(ss.to(torch.int32), hh.to(torch.int32))
     b4 = ldig.shape[0]
-    err = compare("ladder", lad.ladder(gtab, ldig), lad._ladder_plain(gtab, ldig),
-                  rr.to(torch.int32))
-    nbytes = gtab.numel() * 4 + ldig.numel() * 4 + 4 * 20 * b4 * 4
-    kernels.append(("ladder", err, lambda: lad.ladder(gtab, ldig),
-                    lambda: lad._ladder_plain(gtab, ldig), b4, nbytes))
+    k_pt, k_ok = lad.ladder(pub, ldig)
+    p_pt, p_ok = lad._ladder_w4_plain(pub, ldig)
+    err = compare("ladder", k_pt, p_pt, rr.to(torch.int32), a_ok=(k_ok, p_ok))
+    nbytes = pub.numel() + ldig.numel() * 4 + 64 * 16 * 60 * 4 + (4 * 20 * 4 + 1) * b4
+    kernels.append(("ladder", err, lambda: lad.ladder(pub, ldig),
+                    lambda: lad._ladder_w4_plain(pub, ldig), b4, nbytes))
 
     report["stages"] = {
         "consensus": stage_times(dev, verifier, "entries", pubs2, commit),
@@ -536,6 +566,16 @@ def run(args) -> dict:
         d["busy_share"] = d["device_s"] / wall if d["device_s"] is not None else None
         report["device"][name] = d
         log({"phase": "device", "call": name, **{k: v for k, v in d.items() if k != "top"}})
+    # the flat call's torch prologue before the ladder kernel: the digit
+    # packing only (decompression, B - A and inversion are in the kernel)
+    pro = device_time(lambda: tab._digits_w4(ss.to(torch.int32), hh.to(torch.int32)))
+    report["flat_launches"] = {
+        "prologue_kernels": pro["device_kernels"],
+        "prologue_device_s": pro["device_s"],
+        "call_kernels": report["device"]["flat"]["device_kernels"],
+        "eager_prologue_call_kernels": EAGER_PROLOGUE_FLAT_CALL_KERNELS,
+    }
+    log({"phase": "flat_launches", **report["flat_launches"]})
 
     rows = []
     for name, err, kern, plain, lanes, nbytes in kernels:

@@ -12,22 +12,24 @@
 //                          validator tables inside the kernel)
 //
 // Bound on this card: integer multiply-adds. A mixed add is 7 field
-// multiplies of 400 limb products each, so a lane costs 96 * 7 * 400
-// (entries) or 128 * 7 * 400 (fused) multiply-adds against 96 * 240 or
-// 128 * 120 bytes of entries read; both chains are set by the INT32
-// rate, not by memory.
+// multiplies: entries 96 x 7 of 400 limb products (20 x 13-bit limbs,
+// fe25519.cuh), fused 128 x 7 + 9 of 100 (10 x 26-bit limbs,
+// fe25519_r26.cuh), against 96 x 240 or 128 x 120 bytes of entries a
+// lane (the fused tables cross memory once a launch); both chains are
+// set by the INT32 rate, not by memory.
 //
-// Design: one thread per lane, the accumulator (X, Y, Z, T: 80 limbs)
-// in registers for the whole chain, a loop over the steps inside the
-// thread in place of the TPU's sequential grid axis. Inputs are laid
-// out lane-minor — entries as (96, 60, B), digits as (128, B) — so
-// neighbouring threads read neighbouring addresses. The fused kernel's
-// lane b reads validator b mod N directly, so no reordering of lanes is
-// needed. Spills of the 80-limb accumulator are accepted in this first
-// version.
+// madd_chain_entries: one thread per lane, the accumulator (X, Y, Z, T:
+// 80 limbs) in registers for the whole chain, a loop over the steps in
+// place of the TPU's sequential grid axis; entries lane-minor (96, 60, B)
+// so neighbouring threads read neighbouring addresses.
+//
+// madd_chain_fused: see the kernel's comment. Lane b = c * N + v reads
+// validator v = b mod N; a block covers 8 validators of up to 8 commits,
+// so any N and any K >= 1 run.
 #include <cuda_runtime.h>
 
 #include "fe25519.cuh"
+#include "fe25519_r26.cuh"
 
 using namespace fe25519;
 
@@ -58,48 +60,157 @@ __global__ void madd_chain_entries_kernel(const int32_t* __restrict__ ent,
   store_point(out, lane, B, X, Y, Z, T);
 }
 
-__global__ void madd_chain_fused_kernel(const int16_t* __restrict__ tables,
-                                        const int32_t* __restrict__ sb,
-                                        const int32_t* __restrict__ digits,
-                                        int32_t* __restrict__ out, int64_t B,
-                                        int64_t N) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const int64_t col = lane % N;
-  int32_t X[NL], Y[NL], Z[NL], T[NL];
-  set_identity(X, Y, Z, T);
-  int32_t ypx[NL], ymx[NL], t2d[NL];
-  // steps 0..63: w=4 fixed-base comb, sb is (64, 16, 60)
-#pragma unroll 1
-  for (int w = 0; w < 64; ++w) {
-    const int d = __ldg(digits + static_cast<int64_t>(w) * B + lane);
-    const int32_t* e = sb + (w * 16 + d) * kEntryLimbs;
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      ypx[i] = __ldg(e + i);
-      ymx[i] = __ldg(e + NL + i);
-      t2d[i] = __ldg(e + 2 * NL + i);
-    }
-    madd(X, Y, Z, T, ypx, ymx, t2d);
-  }
-  // steps 64..127: validator tables, (64, 16, 60, N) int16
-#pragma unroll 1
-  for (int w = 0; w < 64; ++w) {
-    const int d = __ldg(digits + static_cast<int64_t>(64 + w) * B + lane);
-    const int16_t* e = tables + (static_cast<int64_t>(w) * 16 + d) * kEntryLimbs * N + col;
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      ypx[i] = __ldg(e + (0 * NL + i) * N);
-      ymx[i] = __ldg(e + (1 * NL + i) * N);
-      t2d[i] = __ldg(e + (2 * NL + i) * N);
-    }
-    madd(X, Y, Z, T, ypx, ymx, t2d);
-  }
-  store_point(out, lane, B, X, Y, Z, T);
-}
-
 inline unsigned blocks_for(int64_t B) {
   return static_cast<unsigned>((B + kThreads - 1) / kThreads);
+}
+
+
+// -- madd_chain_fused: a validator tile staged once per window ---------------
+
+constexpr int kL13 = 2 * r26::NL;            // 13-bit limbs of an element
+constexpr int kTileV = 8;                   // validators a block
+constexpr int kMaxCommits = 8;              // commits a block
+constexpr int kSlabRows = 16 * kEntryLimbs;  // (digit, limb) rows of a window
+constexpr int kRowWords = kTileV / 2 + 1;   // a row's 8 int16 from a 4-byte boundary
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+struct FusedSlab {
+  __align__(16) int32_t sb[kSlabRows];           // comb entries of the window
+  uint32_t tab[kSlabRows * kRowWords];           // the tile's table rows
+};
+
+// Window w of the tile starting at validator v0 into `slab`: the comb's
+// (16, 60) int32 slab in 16-byte copies, and each (digit, limb) row's
+// kTileV int16 values as the 4-byte words that hold them. Row r's first
+// value sits at int16 index (w * 960 + r) * N + v0 of the table, odd
+// exactly when N and r are odd (v0 is a multiple of kTileV), so the
+// reader skips one int16 there. Words past the table's end are zero; the
+// half-word at the end of an odd-sized table is copied alone.
+__device__ __forceinline__ void load_window(FusedSlab& slab, int w, const int16_t* tables,
+                                            const int32_t* sb, int64_t N, int64_t v0,
+                                            int64_t total) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(tables);
+  for (int i = threadIdx.x; i < kSlabRows * kRowWords; i += blockDim.x) {
+    const int r = i / kRowWords;
+    const int64_t word = (((static_cast<int64_t>(w) * kSlabRows + r) * N + v0) >> 1) + i % kRowWords;
+    if (2 * word + 1 < total) {
+      cp_async4(&slab.tab[i], words + word);
+    } else {
+      slab.tab[i] = 2 * word < total ? static_cast<uint16_t>(tables[2 * word]) : 0u;
+    }
+  }
+  for (int i = threadIdx.x; i < kSlabRows / 4; i += blockDim.x) {
+    cp_async16(&slab.sb[4 * i], sb + static_cast<int64_t>(w) * kSlabRows + 4 * i);
+  }
+}
+
+// one coordinate of a lane into out (4, 20, B), back in the boundary form
+__device__ __forceinline__ void store_r26(int32_t* out, int coord, const int32_t a[r26::NL],
+                                          int64_t lane, int64_t B) {
+  int64_t v[r26::NL];
+#pragma unroll
+  for (int i = 0; i < r26::NL; ++i) v[i] = a[i];
+  int32_t l13[kL13];
+  r26::to_boundary(l13, v);
+#pragma unroll
+  for (int i = 0; i < kL13; ++i) out[(coord * kL13 + i) * B + lane] = l13[i];
+}
+
+// Block: kTileV validators x kc commits, two threads a lane (lane
+// b = c * N + v). Even threads sum the 64 comb steps of [S]B, odd threads
+// the 64 validator-table steps of [h](-A), each in one thread's registers
+// with the radix-2^26 field code; the pair joins with one extended
+// addition over a shuffle. Each window's slabs are loaded once per block
+// with cp.async, double-buffered: the next window's copies fly while
+// this one's additions run.
+__global__ void __launch_bounds__(2 * kTileV * kMaxCommits)
+    madd_chain_fused_kernel(const int16_t* __restrict__ tables,
+                            const int32_t* __restrict__ sb,
+                            const int32_t* __restrict__ digits,
+                            int32_t* __restrict__ out, int64_t B, int64_t N,
+                            int kc, int commit_groups) {
+  __shared__ FusedSlab slabs[2];
+  const int tile = blockIdx.x / commit_groups;
+  const int cg = blockIdx.x % commit_groups;
+  const int half = threadIdx.x & 1;  // 0: comb of B, 1: validator tables
+  const int vl = (threadIdx.x >> 1) % kTileV;
+  const int cl = (threadIdx.x >> 1) / kTileV;
+  const int64_t v0 = static_cast<int64_t>(tile) * kTileV;
+  const int64_t commits = B / N;
+  const int64_t c = static_cast<int64_t>(cg) * kc + cl;
+  const bool valid = v0 + vl < N && c < commits;
+  const int64_t lane = valid ? c * N + v0 + vl : 0;
+  const int64_t total = 64 * kSlabRows * N;
+  const int shift_odd_rows = static_cast<int>(N & 1);
+
+  int32_t X[r26::NL], Y[r26::NL], Z[r26::NL], T[r26::NL];
+  r26::set_identity(X, Y, Z, T);
+  int32_t ypx[r26::NL], ymx[r26::NL], t2d[r26::NL];
+
+  load_window(slabs[0], 0, tables, sb, N, v0, total);
+  cp_async_commit();
+#pragma unroll 1
+  for (int w = 0; w < 64; ++w) {
+    if (w + 1 < 64) load_window(slabs[(w + 1) & 1], w + 1, tables, sb, N, v0, total);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const FusedSlab& slab = slabs[w & 1];
+    const int d = __ldg(digits + static_cast<int64_t>(half * 64 + w) * B + lane);
+    const int row0 = d * kEntryLimbs;
+    if (half == 0) {
+      const int32_t* e = slab.sb + row0;
+      r26::pack13(ypx, e);
+      r26::pack13(ymx, e + kL13);
+      r26::pack13(t2d, e + 2 * kL13);
+    } else {
+      int32_t l13[kEntryLimbs];
+#pragma unroll
+      for (int i = 0; i < kEntryLimbs; ++i) {
+        const int r = row0 + i;
+        const uint16_t* rowv = reinterpret_cast<const uint16_t*>(slab.tab + r * kRowWords);
+        l13[i] = static_cast<int16_t>(rowv[(shift_odd_rows & r) + vl]);
+      }
+      r26::pack13(ypx, l13);
+      r26::pack13(ymx, l13 + kL13);
+      r26::pack13(t2d, l13 + 2 * kL13);
+    }
+    r26::madd(X, Y, Z, T, ypx, ymx, t2d);
+    __syncthreads();
+  }
+
+  // join: the comb thread adds its partner's [h](-A)
+  int32_t X2[r26::NL], Y2[r26::NL], Z2[r26::NL], T2[r26::NL];
+#pragma unroll
+  for (int i = 0; i < r26::NL; ++i) {
+    X2[i] = __shfl_xor_sync(r26::FULL, X[i], 1);
+    Y2[i] = __shfl_xor_sync(r26::FULL, Y[i], 1);
+    Z2[i] = __shfl_xor_sync(r26::FULL, Z[i], 1);
+    T2[i] = __shfl_xor_sync(r26::FULL, T[i], 1);
+  }
+  if (!valid || half != 0) return;
+  int32_t d2[r26::NL];
+#pragma unroll
+  for (int i = 0; i < r26::NL; ++i) d2[i] = r26::kD2[i];
+  r26::add(X, Y, Z, T, X2, Y2, Z2, T2, d2);
+  store_r26(out, 0, X, lane, B);
+  store_r26(out, 1, Y, lane, B);
+  store_r26(out, 2, Z, lane, B);
+  store_r26(out, 3, T, lane, B);
 }
 
 }  // namespace
@@ -117,14 +228,19 @@ int madd_chain_entries(const void* ent, void* out, long long B, int nsteps,
 }
 
 // tables (64, 16, 60, N) int16, sb (64, 16, 60) int32, digits (128, B)
-// int32 nibbles -> out (4, 20, B) int32
+// int32 nibbles -> out (4, 20, B) int32; B a multiple of N
 int madd_chain_fused(const void* tables, const void* sb, const void* digits,
                      void* out, long long B, long long N, void* stream) {
   if (B <= 0) return 0;
-  madd_chain_fused_kernel<<<blocks_for(B), kThreads, 0,
+  const long long commits = B / N;
+  const int kc = static_cast<int>(commits < kMaxCommits ? commits : kMaxCommits);
+  const long long groups = (commits + kc - 1) / kc;
+  const long long tiles = (N + kTileV - 1) / kTileV;
+  madd_chain_fused_kernel<<<static_cast<unsigned>(tiles * groups), 2 * kTileV * kc, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(tables), static_cast<const int32_t*>(sb),
-      static_cast<const int32_t*>(digits), static_cast<int32_t*>(out), B, N);
+      static_cast<const int32_t*>(digits), static_cast<int32_t*>(out), B, N, kc,
+      static_cast<int>(groups));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,7 +36,7 @@ _I64 = ctypes.c_longlong
 SIGNATURES = {
     "madd_chain_entries": [_P, _P, _I64, ctypes.c_int, _P],
     "madd_chain_fused": [_P, _P, _P, _P, _I64, _I64, _P],
-    "ladder": [_P, _P, _P, _I64, _P],
+    "ladder": [_P, _P, _P, _P, _P, _I64, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,20 +1,23 @@
-"""The generic double-scalar ladder for flat batches (no cached tables).
+"""The generic double-scalar verify for flat batches (no cached tables).
 
 Counterpart of `tendermint_tpu/ops/ed25519_ladder_pallas.py`. Ad-hoc
 batches (light-client first contact, evidence, mempool envelopes) have
-no validator tables, so every lane runs a 253-step Shamir ladder:
+no validator tables, so every lane computes [S]B + [h](-A) on its own.
 
-  table = {O, B, -A, B-A} in affine ypx/ymx/t2d precomp form (built by
-  the torch prologue `_build_inputs`: one decompress, one point add and
-  one batched inversion), then 253 identical steps of
-      acc = madd(double(acc), table[s_bit + 2*h_bit])
-  msb-first. The identity is the precomp (1, 1, 0), so every step is
-  branch-free. The verdict is the table path's encode-and-compare
-  (`_finish_encode_compare`) — R is never decompressed.
+The card's path is one kernel, `ladder` (`csrc/ladder.cu`), from the
+encoding of A and the 128 nibbles of (S, h) that `_digits_w4` packs:
+decompression, a table of 16 multiples of -A and a 4-bit window for
+[h](-A), the w = 4 comb (`sb_table_w4`) for [S]B, one addition of the
+halves. Its plain version `_ladder_w4_plain` takes the same steps in
+torch and is the CPU path. The verdict is the table path's
+encode-and-compare (`_finish_encode_compare`) -- R is never
+decompressed.
 
-`ladder` launches the CUDA kernel (`csrc/ladder.cu`) for CUDA tensors
-and runs its plain torch version for CPU tensors. Unlike the TPU kernel
-it takes any batch size: there is no 1024-lane tile.
+`_build_inputs` and `_ladder_plain` are the JAX package's algorithm
+limb for limb: the torch prologue (per-lane table {O, B, -A, B-A} in
+affine precomp form, one batched inversion) and 253 steps of
+acc = madd(double(acc), table[s_bit + 2*h_bit]), msb-first. They are
+the oracle the tests hold the card's path against.
 """
 
 from __future__ import annotations
@@ -26,18 +29,27 @@ from tendermint_tpu_torch.ops.ed25519_kernel import (
     BX,
     BY,
     D2,
+    MASK,
     NLIMBS,
     P,
     SCALAR_BITS,
     _D2_L,
+    _D_L,
     _ONE_L,
+    _SQRT_M1_L,
     _const,
     _int_to_limbs,
     _scalar_bits_from_le_bytes,
     base_point,
+    bytes_to_fe,
     fe_canon,
     fe_carry,
+    fe_cmov,
+    fe_is_zero,
     fe_mul,
+    fe_neg,
+    fe_pow_p58,
+    fe_sq,
     fe_sub,
     identity_point,
     pt_add,
@@ -46,11 +58,15 @@ from tendermint_tpu_torch.ops.ed25519_kernel import (
     pt_neg,
 )
 from tendermint_tpu_torch.ops.ed25519_tables import (
+    NSTEPS_W4,
+    SB_NWIN,
     _check_cuda,
     _coords,
+    _digits_w4,
     _finish_encode_compare,
     fe_batch_invert,
     pt_madd,
+    sb_table_w4,
 )
 
 # base-point and identity precomp constants
@@ -111,28 +127,102 @@ def _ladder_plain(gtab, dig):
     return acc
 
 
-def ladder(gtab, dig):
-    """gtab (4, B, 60) int32, dig (B, 253) int32 -> extended acc
-    (x, y, z, t), each (B, 20) int32. CUDA tensors launch the `ladder`
-    kernel; CPU tensors run `_ladder_plain`."""
-    if dig.device.type == "cpu":
-        return _ladder_plain(gtab, dig)
-    bsz = dig.shape[0]
-    _check_cuda("gtab", gtab, torch.int32, (4, bsz, 3 * NLIMBS))
-    _check_cuda("dig", dig, torch.int32, (bsz, SCALAR_BITS))
-    if gtab.device != dig.device:
-        raise ValueError("gtab and dig must be on the same device")
-    gtab_t = gtab.transpose(1, 2).contiguous()  # (4, 60, B): lanes adjacent
-    dig_t = dig.T.contiguous()  # (253, B)
-    out = torch.empty((4, NLIMBS, bsz), dtype=torch.int32, device=dig.device)
+# -- the card's flat path: decompression and both halves in one kernel --------
+
+
+def _decompress_neg(pub_bytes):
+    """Step 1 of the `ladder` kernel in torch: (B, 32) encodings ->
+    (-A extended, a_ok). The rules of `pt_decompress` (y < p, on the
+    curve, no x = 0 with the sign bit set), with y >= p read off the
+    limbs as the kernel does; a rejected lane gets the identity, so
+    every lane's point is on the curve."""
+    enc = pub_bytes.to(torch.int32)
+    sign = (enc[..., 31] >> 7) & 1
+    y_enc = enc.clone()
+    y_enc[..., 31] &= 0x7F
+    y = bytes_to_fe(y_enc)  # exact 13-bit limbs of a value < 2^255
+    # y >= p = 2^255 - 19: limbs 1..18 all ones, limb 19 (bits 247..254)
+    # all ones, limb 0 at least 2^13 - 19
+    y_ge_p = (y[..., 1:19] == MASK).all(dim=-1) & (y[..., 19] == 0xFF) & (y[..., 0] >= MASK + 1 - 19)
+    dev = y.device
+    one = _const(_ONE_L, dev).expand(y.shape)
+    y2 = fe_sq(y)
+    u = fe_sub(y2, one)
+    v = fe_carry(fe_mul(y2, _const(_D_L, dev)) + one)
+    v3 = fe_mul(fe_sq(v), v)
+    v7 = fe_mul(fe_sq(v3), v)
+    x = fe_mul(fe_mul(u, v3), fe_pow_p58(fe_mul(u, v7)))
+    vxx = fe_mul(v, fe_sq(x))
+    ok_direct = fe_is_zero(fe_sub(vxx, u))
+    ok_flip = fe_is_zero(fe_carry(vxx + u))
+    x = fe_cmov(x, fe_mul(x, _const(_SQRT_M1_L, dev)), ok_flip & ~ok_direct)
+    xc = fe_canon(x)
+    x_zero = (xc == 0).all(dim=-1)
+    x = fe_cmov(x, fe_neg(x), (xc[..., 0] & 1) != sign)
+    ok = (ok_direct | ok_flip) & ~y_ge_p & ~(x_zero & (sign == 1))
+    ident = identity_point(y.shape[:-1], dev)
+    nx = fe_cmov(ident[0], fe_neg(x), ok)
+    ny = fe_cmov(ident[1], y, ok)
+    return (nx, ny, ident[2], fe_mul(nx, ny)), ok
+
+
+def _select_lanes(table, dig):
+    """table: 16 points (each coordinate (B, 20)), dig (B,) -> the point
+    table[dig[b]] of each lane b."""
+    lanes = torch.arange(dig.shape[0], device=dig.device)
+    return tuple(torch.stack([e[c] for e in table])[dig.long(), lanes] for c in range(4))
+
+
+def _ladder_w4_plain(pub, digits):
+    """Plain version of the `ladder` kernel, the same steps in torch:
+    pub (B, 32) uint8, digits (B, 128) int32 (`_digits_w4`: 64 nibbles
+    of S, then 64 of h) -> (extended [S]B + [h](-A), each (B, 20),
+    a_ok (B,) bool)."""
+    bsz = digits.shape[0]
+    dev = digits.device
+    neg_a, a_ok = _decompress_neg(pub)
+    table = [identity_point((bsz,), dev)]
+    for _ in range(15):
+        table.append(pt_add(table[-1], neg_a))
+    acc = identity_point((bsz,), dev)
+    for w in reversed(range(SB_NWIN)):
+        if w != SB_NWIN - 1:
+            for _ in range(4):
+                acc = pt_double(acc)
+        acc = pt_add(acc, _select_lanes(table, digits[:, SB_NWIN + w]))
+    sb = _const(sb_table_w4(), dev)
+    accb = identity_point((bsz,), dev)
+    for w in range(SB_NWIN):
+        e = sb[w, digits[:, w].long()]
+        accb = pt_madd(accb, (e[:, :20], e[:, 20:40], e[:, 40:]))
+    return pt_add(acc, accb), a_ok
+
+
+def ladder(pub, digits):
+    """pub (B, 32) uint8 encodings of A, digits (B, 128) int32 nibbles
+    -> (extended [S]B + [h](-A), each (B, 20) int32, a_ok (B,) bool).
+    CUDA tensors launch the `ladder` kernel; CPU tensors run
+    `_ladder_w4_plain`."""
+    if digits.device.type == "cpu":
+        return _ladder_w4_plain(pub, digits)
+    bsz = digits.shape[0]
+    _check_cuda("pub", pub, torch.uint8, (bsz, 32))
+    _check_cuda("digits", digits, torch.int32, (bsz, NSTEPS_W4))
+    if pub.device != digits.device:
+        raise ValueError("pub and digits must be on the same device")
+    dev = digits.device
+    sb = _const(sb_table_w4(), dev)
+    out = torch.empty((4, NLIMBS, bsz), dtype=torch.int32, device=dev)
+    a_ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
     lib = kernel_lib()
-    with torch.cuda.device(dig.device):
+    with torch.cuda.device(dev):
         rc = lib.ladder(
-            gtab_t.data_ptr(), dig_t.data_ptr(), out.data_ptr(), bsz, stream_ptr(dig.device)
+            pub.data_ptr(), digits.data_ptr(), sb.data_ptr(), out.data_ptr(),
+            a_ok.data_ptr(), bsz, stream_ptr(dev),
         )
     check(rc, "ladder")
     ladder.launches += 1
-    return _coords(out)
+    return _coords(out), a_ok
 
 
 ladder.launches = 0
@@ -142,7 +232,8 @@ def verify_kernel_ladder(pub_bytes, r_bytes, s_bytes, h_bytes):
     """Flat-batch verify, the counterpart of `verify_kernel_pallas`:
     pub, r, s, h (B, 32) uint8 tensors -> (B,) bool, cofactorless
     [S]B + [h](-A) == R by byte-compare against the R encoding (the
-    same verdicts as the JAX package's `verify_kernel`)."""
-    gtab, dig, a_ok = _build_inputs(pub_bytes, s_bytes, h_bytes)
-    x, y, z, _t = ladder(gtab.contiguous(), dig)
+    same verdicts as the JAX package's `verify_kernel`). The only torch
+    work before the kernel is the digit packing."""
+    digits = _digits_w4(s_bytes.to(torch.int32), h_bytes.to(torch.int32))
+    (x, y, z, _t), a_ok = ladder(pub_bytes.contiguous(), digits)
     return _finish_encode_compare(x, y, z, r_bytes.to(torch.int32)) & a_ok

@@ -20,8 +20,9 @@ Two kernels share the tables (`csrc/madd_chain.cu`):
 * `sum_entries` — the materialized-entries chain: `_select_entries`
   gathers the 96 affine entries of every lane, lane-minor, and the
   kernel runs 96 mixed adds per lane. Single commits and small stacks take it.
-* `fused_chain` — selection fused into the chain: 128 mixed adds per
-  lane, each reading its entry straight from the tables. Stacked
+* `fused_chain` — selection fused into the chain: per lane 64 comb
+  steps and 64 validator-table steps, two threads a lane, each block
+  staging its validator tile's table slab once per window. Stacked
   windows (K >= FUSED_MIN_STACK commits) take it.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
@@ -495,15 +496,21 @@ def _fused_chain_plain(a_tables, digits):
 def fused_chain(a_tables, digits):
     """a_tables (64, 16, 60, N) int16, digits (B, 128) int32 -> extended
     acc (x, y, z, t), each (B, 20) int32. CUDA tensors launch
-    `madd_chain_fused`; CPU tensors run `_fused_chain_plain`."""
-    if digits.device.type == "cpu":
-        return _fused_chain_plain(a_tables, digits)
+    `madd_chain_fused`; CPU tensors run `_fused_chain_plain`. Lane b
+    takes validator b mod N, and B must be whole commits (a multiple of
+    N) on either device."""
     n_vals = a_tables.shape[3] if a_tables.dim() == 4 else -1
     bsz = digits.shape[0]
+    if n_vals <= 0 or bsz <= 0 or bsz % n_vals:
+        raise ValueError(f"digits: B={bsz} lanes must be a positive multiple of N={n_vals}")
+    if digits.device.type == "cpu":
+        return _fused_chain_plain(a_tables, digits)
     _check_cuda("a_tables", a_tables, torch.int16, (A_NWIN, 16, 3 * NLIMBS, n_vals))
     _check_cuda("digits", digits, torch.int32, (bsz, NSTEPS_W4))
     if a_tables.device != digits.device:
         raise ValueError("a_tables and digits must be on the same device")
+    if a_tables.data_ptr() % 4:
+        raise ValueError("a_tables: the kernel copies 4-byte words; expected a 4-byte aligned tensor")
     dig_t = digits.T.contiguous()  # (128, B): lanes adjacent
     sb = _const(sb_table_w4(), digits.device)
     out = torch.empty((4, NLIMBS, bsz), dtype=torch.int32, device=digits.device)

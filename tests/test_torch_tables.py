@@ -249,3 +249,12 @@ def test_build_key_tables_needs_a_device_or_a_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError):
         TT.build_key_tables(np.zeros((1, 32), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 7])
+def test_fused_chain_takes_whole_commits_only(lanes):
+    """Lane b takes validator b mod N: no lanes, fewer lanes than N or a
+    part of a commit is refused on the CPU as on the card."""
+    tbl = torch.zeros((TT.A_NWIN, 16, 60, 5), dtype=torch.int16)
+    with pytest.raises(ValueError):
+        TT.fused_chain(tbl, torch.zeros((lanes, TT.NSTEPS_W4), dtype=torch.int32))

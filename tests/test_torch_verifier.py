@@ -92,16 +92,23 @@ def test_device_batch_verifier_matches_jax_host(privs):
 
 
 def test_flat_batches_take_the_ladder_on_cpu(privs, monkeypatch):
-    """The CPU runs the card's flat path — ladder prologue, the ladder's
-    plain version, the encode-and-compare finish — not another verifier."""
+    """The CPU runs the card's flat path — the digit packing, the ladder
+    kernel's plain version, the encode-and-compare finish — not another
+    verifier, and no decompression or inversion before the ladder."""
     seen = []
-    for mod, name in ((TL, "_build_inputs"), (TL, "_ladder_plain"), (TL, "_finish_encode_compare")):
+    for mod, name in (
+        (TL, "_digits_w4"),
+        (TL, "pt_decompress"),
+        (TL, "fe_batch_invert"),
+        (TL, "_ladder_w4_plain"),
+        (TL, "_finish_encode_compare"),
+    ):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real: seen.append(_n) or _f(*a))
     triples = _flat(privs)
     got = V.DeviceBatchVerifier(device="cpu", min_device_batch=0).verify_batch(triples)
     np.testing.assert_array_equal(got, JaxHostVerifier().verify_batch(triples))
-    assert seen == ["_build_inputs", "_ladder_plain", "_finish_encode_compare"]
+    assert seen == ["_digits_w4", "_ladder_w4_plain", "_finish_encode_compare"]
 
 
 @pytest.mark.parametrize("n", [1, 9])
