@@ -12,21 +12,30 @@ bytes):
    and spill lines printed);
 2. consensus commit: one commit of a 10,000-validator set through
    `default_verifier().verify_commits` — tables built on the card, the
-   entries-chain kernel (`madd_chain_entries`);
+   entries-chain kernel (`madd_chain_entries`, selecting its entries
+   from the tables itself);
 3. fast-sync window: 16 stacked commits of a 1000-validator set — the
    fused kernel (`madd_chain_fused`);
 4. flat batch: `verify_batch` on 4096 triples with distinct keys — the
    `ladder` kernel (decompression, [h](-A) and [S]B in one kernel);
+   every phase ends in the `finish_encode_compare` kernel (invert,
+   encode, compare with R);
 1. kernel vs plain: each kernel against its plain torch version on the
-   card, on the inputs its phase gave it (the entries chain also at the
-   flat batch's 4096 lanes), compared exactly on the canonical affine
-   coordinates (x, y), T * Z == X * Y, the verdicts and, for the
-   ladder, a_ok (everything is an integer: tolerance 0); then a
-   per-stage breakdown of one call of each phase, the card's kernel
+   card, on the inputs its phase gave it (the entries chain also at
+   4096 lanes and at 3 commits of the fast-sync set), compared exactly
+   on the canonical affine coordinates (x, y), T * Z == X * Y, the
+   verdicts and, for the ladder, a_ok; the finish on all three chains'
+   outputs and on hand-made lanes (sign bit set and cleared, y >= p,
+   the identity, Z = 0) (everything is an integer: tolerance 0); then
+   a per-stage breakdown of one call of each phase, the card's kernel
    time in one call of each phase (torch.profiler) and the flat
    prologue's kernel count, and each kernel and plain version timed
-   with CUDA events. Each kernel's bound counts 100 limb products a
-   field multiply (FE_MULS_PER_LANE).
+   with CUDA events. Each kernel's bound is the larger of the limb
+   products its function needs (100 a field multiply, 55 a squaring;
+   FE_OPS_PER_LANE, and for the finish a batched inversion's count, not
+   its kernel's per-lane chain) and the bytes it must move
+   (madd_chain_entries: the distinct 32-byte table sectors its lanes
+   touch).
 
 Every phase plants a forged signature, an absent vote, an S >= L, an
 invalid pubkey encoding and a wrong-length signature, and its verdicts
@@ -58,23 +67,36 @@ MSG_LEN = 241
 INT32_LANES_PER_SM_CLOCK = 64  # Hopper white paper: 64 INT32 lanes per SM
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # One rule for every kernel's bound: a field multiply counts 100 limb
-# products (10 x 10 in radix 2^26), whatever limbs the kernel uses
-# (madd_chain_entries still multiplies 20 x 20 of radix 2^13).
+# products (10 x 10 in radix 2^26), a squaring 55 (10 squares and 45
+# cross products).
 PRODUCTS_PER_FE_MUL = 100
-# field multiplies a lane of the ladder kernel runs (csrc/ladder.cu)
-LADDER_FE_MULS = {
-    "decompress": 275,  # y^2, d y^2, v^3, v^7, the 262 of the p58 chain, x^2, ...
-    "table": 1 + 15 * (8 + 1),  # -A cached, 15 additions, each cached
-    "doublings": 63 * (3 * 7 + 8),  # 4 a window, T only before an addition
-    "window_adds": 64 * 8,
-    "comb": 64 * 7,
-    "join": 1 + 8,
+PRODUCTS_PER_FE_SQ = 55
+SECTOR_BYTES = 32  # the card's unit of a read from device memory
+# field (multiplies, squarings) a lane of the ladder kernel runs (csrc/ladder.cu)
+LADDER_FE_OPS = {
+    # d y^2, v^3, v^7, u v^3, u v^7, x, v x^2, x sqrt(-1), T and the 11
+    # multiplies of the p58 chain; y^2, v^2, v^6, x^2 and its 251 squarings
+    "decompress": (20, 255),
+    "table": (1 + 15 * (8 + 1), 0),  # -A cached, 15 additions, each cached
+    # 4 doublings a window of 4 squarings and 3 multiplies, T only before an addition
+    "doublings": (63 * (3 * 3 + 4), 63 * 4 * 4),
+    "window_adds": (64 * 8, 0),
+    "comb": (64 * 7, 0),
+    "join": (1 + 8, 0),
 }
-FE_MULS_PER_LANE = {
-    "madd_chain_entries": 96 * 7,
-    "madd_chain_fused": 128 * 7 + 9,  # two 64-step halves and one addition
-    "ladder": sum(LADDER_FE_MULS.values()),
+# field (multiplies, squarings) a lane of each function needs
+FE_OPS_PER_LANE = {
+    "madd_chain_entries": (96 * 7, 0),
+    "madd_chain_fused": (128 * 7 + 9, 0),  # two 64-step halves and one addition
+    "ladder": tuple(map(sum, zip(*LADDER_FE_OPS.values()))),
+    # encode(x/z, y/z) needs a batched (Montgomery) inversion's 3
+    # multiplies a lane, then x/z and y/z; the kernel's own per-lane
+    # chain (254 squarings, 11 multiplies) is more than the function needs
+    "finish_encode_compare": (3 + 2, 0),
 }
+# field (multiplies, squarings) once a call: the batched inversion's one
+# shared z^(p-2)
+FE_OPS_PER_CALL = {"finish_encode_compare": (11, 254)}
 # kernels a flat call ran when torch decompressed A, built B - A and
 # inverted before the ladder (PERF.md, run F)
 EAGER_PROLOGUE_FLAT_CALL_KERNELS = 33818
@@ -90,6 +112,11 @@ KERNEL_INFO = {
     "ladder": (
         "tendermint_tpu_torch/csrc/ladder.cu",
         "tendermint_tpu/ops/ed25519_ladder_pallas.py:155",
+    ),
+    # an XLA stage of the JAX package, not a Pallas kernel
+    "finish_encode_compare": (
+        "tendermint_tpu_torch/csrc/finish.cu",
+        "tendermint_tpu/ops/ed25519_tables.py:895",
     ),
 }
 
@@ -196,22 +223,29 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def counts() -> dict:
+def wrappers() -> dict:
     from tendermint_tpu_torch.ops.ed25519_ladder import ladder
-    from tendermint_tpu_torch.ops.ed25519_tables import fused_chain, sum_entries
+    from tendermint_tpu_torch.ops.ed25519_tables import (
+        finish_encode_compare,
+        fused_chain,
+        sum_entries,
+    )
 
     return {
-        "madd_chain_entries": sum_entries.launches,
-        "madd_chain_fused": fused_chain.launches,
-        "ladder": ladder.launches,
+        "madd_chain_entries": sum_entries,
+        "madd_chain_fused": fused_chain,
+        "ladder": ladder,
+        "finish_encode_compare": finish_encode_compare,
     }
 
 
-def reset_counts() -> None:
-    from tendermint_tpu_torch.ops.ed25519_ladder import ladder
-    from tendermint_tpu_torch.ops.ed25519_tables import fused_chain, sum_entries
+def counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
 
-    sum_entries.launches = fused_chain.launches = ladder.launches = 0
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def affine(point):
@@ -250,8 +284,79 @@ def compare(name, kernel_out, plain_out, r, a_ok=None) -> int:
     return err
 
 
+def compare_finish(name, point, r) -> int:
+    """The finish kernel against its plain version on one chain's output,
+    verdict for verdict; returns the number of lanes that differ (0)."""
+    import torch
+
+    from tendermint_tpu_torch.ops.ed25519_tables import _finish_encode_compare, finish_encode_compare
+
+    x, y, z = point[:3]
+    got = finish_encode_compare(x, y, z, r)
+    want = _finish_encode_compare(x.contiguous(), y.contiguous(), z.contiguous(), r.to(torch.int32))
+    diff = int((got != want).sum().item())
+    if diff:
+        raise AssertionError(f"finish_encode_compare on {name}: {diff} verdicts differ from the plain version")
+    return diff
+
+
+def check_finish_edges(dev) -> None:
+    """The finish on the hand-made lanes of `finish_edge_lanes` (known
+    verdicts, same as the plain version's), then on lanes with Z = 0: the
+    tree's verdict is true for an all-zero R there, the kernel's false."""
+    import torch
+
+    from tendermint_tpu_torch.ops.ed25519_tables import _finish_encode_compare, finish_encode_compare
+    from tendermint_tpu_torch.testing import finish_edge_lanes
+
+    x, y, z, r, want = (torch.from_numpy(a).to(dev) for a in finish_edge_lanes())
+    got = finish_encode_compare(x, y, z, r)
+    plain = _finish_encode_compare(x, y, z, r.to(torch.int32))
+    if not (torch.equal(got, want) and torch.equal(plain, want)):
+        raise AssertionError(f"finish on hand-made lanes: {got.tolist()} / plain {plain.tolist()}, want {want.tolist()}")
+    zero = torch.zeros((2, 20), dtype=torch.int32, device=dev)
+    y0 = zero.clone()
+    y0[1, 0] = 1
+    r0 = torch.zeros((2, 32), dtype=torch.uint8, device=dev)
+    r0[1, 0] = 1
+    if finish_encode_compare(zero, y0, zero, r0).any():
+        raise AssertionError("finish: a lane with Z = 0 came out true")
+
+
+def entries_bytes(a_tables, s, h) -> tuple[int, int]:
+    """Bytes `madd_chain_entries` must move for these digits, and the
+    table sectors among them: the distinct 32-byte sectors of the table
+    entries its lanes select (an entry's 60 int16 limbs lie N apart), the
+    distinct comb entries (240 bytes each), S and h (int32) and the
+    (4, 20, B) int32 output."""
+    import torch
+
+    from tendermint_tpu_torch.ops.ed25519_tables import _h_nibbles
+
+    n = a_tables.shape[3]
+    bsz = s.shape[0]
+    dev = s.device
+    w = torch.arange(64, device=dev)
+    rows = (w * 16 + _h_nibbles(h).long()) * 60  # (B, 64): an entry's first row
+    limbs = torch.arange(60, device=dev)
+    v = torch.arange(bsz, device=dev) % n
+    parts = []
+    for lo in range(0, 64, 8):  # 8 windows at a time bounds the scratch
+        addr = ((rows[:, lo:lo + 8, None] + limbs) * n + v[:, None, None]) * 2
+        parts.append(torch.unique(addr // SECTOR_BYTES))
+    sectors = torch.unique(torch.cat(parts)).numel()
+    comb = torch.unique(torch.arange(32, device=dev) * 256 + s.long()).numel()
+    nbytes = sectors * SECTOR_BYTES + comb * 240 + 2 * s.numel() * 4 + 4 * 20 * bsz * 4
+    return nbytes, sectors
+
+
+def products(fe_ops: tuple[int, int]) -> int:
+    muls, squarings = fe_ops
+    return muls * PRODUCTS_PER_FE_MUL + squarings * PRODUCTS_PER_FE_SQ
+
+
 def bound_ms(name: str, lanes: int, nbytes: int, clock_hz: float, sms: int) -> tuple[float, str]:
-    ops = lanes * FE_MULS_PER_LANE[name] * PRODUCTS_PER_FE_MUL
+    ops = lanes * products(FE_OPS_PER_LANE[name]) + products(FE_OPS_PER_CALL.get(name, (0, 0)))
     t_ops = ops / (INT32_LANES_PER_SM_CLOCK * sms * clock_hz)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -260,8 +365,8 @@ def bound_ms(name: str, lanes: int, nbytes: int, clock_hz: float, sms: int) -> t
 def stage_times(dev, verifier, path: str, pubs, commits) -> dict:
     """Seconds of each stage of one call of a phase, the card
     synchronised after each: host prep, copy to the card, the torch
-    prologue (selection / digits / ladder inputs), the kernel, the torch
-    finish (batched inversion, encode, compare) with the copy back."""
+    prologue (the digit packing of the fused and ladder paths), the
+    chain kernel, the finish kernel with the copy back."""
     import torch
 
     from tendermint_tpu_torch.ops import ed25519_ladder as lad
@@ -287,24 +392,23 @@ def stage_times(dev, verifier, path: str, pubs, commits) -> dict:
         mark("prologue_s")
         (x, y, z, _t), a_ok = lad.ladder(pub, dig)
         mark("kernel_s")
-        (tab._finish_encode_compare(x, y, z, r.to(torch.int32)) & a_ok).cpu()
+        (tab.finish_encode_compare(x, y, z, r) & a_ok).cpu()
         mark("finish_s")
         return out
     tables, _ok = verifier.tables_for(tuple(pubs))
     s, h, r, _pre = tab.prepare_commit_lanes(pubs, commits)
     mark("host_prep_s")
-    s, h, r = (torch.from_numpy(a).to(dev).to(torch.int32) for a in (s, h, r))
+    s, h, r = (torch.from_numpy(a).to(dev) for a in (s, h, r))
+    s, h = s.to(torch.int32), h.to(torch.int32)
     mark("to_device_s")
     if path == "entries":
-        ent = tab._select_entries(tables, s, h)
-        mark("prologue_s")
-        x, y, z, _t = tab.sum_entries(ent)
+        x, y, z, _t = tab.sum_entries(tables, s, h)
     else:
         dig = tab._digits_w4(s, h)
         mark("prologue_s")
         x, y, z, _t = tab.fused_chain(tables, dig)
     mark("kernel_s")
-    tab._finish_encode_compare(x, y, z, r).cpu()
+    tab.finish_encode_compare(x, y, z, r).cpu()
     mark("finish_s")
     return out
 
@@ -398,8 +502,9 @@ def run(args) -> dict:
     c2 = counts()
     for g in got:
         check_mask("consensus commit", g, exp2[None, :])
-    if c2["madd_chain_entries"] == 0:
-        raise AssertionError("consensus commit did not launch madd_chain_entries")
+    for name in ("madd_chain_entries", "finish_encode_compare"):
+        if c2[name] == 0:
+            raise AssertionError(f"consensus commit did not launch {name}")
     launches["madd_chain_entries"] = c2["madd_chain_entries"]
     tables2, _ok2 = verifier.tables_for(tuple(pubs2))
     p2 = {
@@ -446,8 +551,9 @@ def run(args) -> dict:
     c3 = counts()
     for g in got:
         check_mask("fast-sync window", g, exp3)
-    if c3["madd_chain_fused"] == 0:
-        raise AssertionError("fast-sync window did not launch madd_chain_fused")
+    for name in ("madd_chain_fused", "finish_encode_compare"):
+        if c3[name] == 0:
+            raise AssertionError(f"fast-sync window did not launch {name}")
     launches["madd_chain_fused"] = c3["madd_chain_fused"]
     med3 = statistics.median(warm3)
     p3 = {
@@ -487,9 +593,12 @@ def run(args) -> dict:
     c4 = counts()
     for g in got:
         check_mask("flat batch", g, exp4)
-    if c4["ladder"] == 0:
-        raise AssertionError("flat batch did not launch ladder")
+    for name in ("ladder", "finish_encode_compare"):
+        if c4[name] == 0:
+            raise AssertionError(f"flat batch did not launch {name}")
     launches["ladder"] = c4["ladder"]
+    # the finish ends every path: its launches over the three phases
+    launches["finish_encode_compare"] = sum(c["finish_encode_compare"] for c in (c2, c3, c4))
     med4 = statistics.median(warm4)
     p4 = {
         "phase": 4,
@@ -512,25 +621,35 @@ def run(args) -> dict:
         return tuple(torch.from_numpy(a).to(dev).to(torch.int32) for a in (s, h, r))
 
     kernels = []
-    # entries chain at the consensus commit's shape
+    # entries chain at the consensus commit's shape, at 4096 lanes (the
+    # first 4096 validators) and at 3 commits of the fast-sync set
     s, h, r = lanes_to_dev(pubs2, commit)
-    ent = tab._select_entries(tables2, s, h)  # (96, 60, B)
-    b2 = ent.shape[2]
-    err = compare("madd_chain_entries", tab.sum_entries(ent), tab._sum_entries_plain(ent), r)
-    part = ent[:, :, : args.flat].contiguous()  # and at the flat batch's 4096 lanes
-    err = max(err, compare("madd_chain_entries", tab.sum_entries(part),
-                           tab._sum_entries_plain(part), r[: args.flat]))
+    b2 = s.shape[0]
+    e_pt = tab.sum_entries(tables2, s, h)
+    err = compare("madd_chain_entries", e_pt, tab._sum_entries_plain(tab._select_entries(tables2, s, h)), r)
+    r2u = r.to(torch.uint8)
+    finish_err = compare_finish("consensus", e_pt, r2u)
+    part = tables2[..., : args.flat].contiguous()
+    sp, hp, rp = s[: args.flat], h[: args.flat], r[: args.flat]
+    err = max(err, compare("madd_chain_entries", tab.sum_entries(part, sp, hp),
+                           tab._sum_entries_plain(tab._select_entries(part, sp, hp)), rp))
     del part
-    nbytes = ent.numel() * 4 + 4 * 20 * b2 * 4
-    kernels.append(("madd_chain_entries", err, lambda: tab.sum_entries(ent),
-                    lambda: tab._sum_entries_plain(ent), b2, nbytes))
-    # fused chain at the fast-sync window's shape
     tables3, _ok3 = verifier.tables_for(tuple(pubs3))
-    s, h, r3 = lanes_to_dev(pubs3, commits3)
-    dig = tab._digits_w4(s, h).contiguous()
+    s3, h3, r3 = lanes_to_dev(pubs3, commits3[:3])
+    err = max(err, compare("madd_chain_entries", tab.sum_entries(tables3, s3, h3),
+                           tab._sum_entries_plain(tab._select_entries(tables3, s3, h3)), r3))
+    nbytes, sectors = entries_bytes(tables2, s, h)
+    report["entries_table_sectors"] = sectors
+    kernels.append(("madd_chain_entries", err, lambda: tab.sum_entries(tables2, s, h),
+                    lambda: tab._sum_entries_plain(tab._select_entries(tables2, s, h)), b2, nbytes))
+    # fused chain at the fast-sync window's shape
+    s3, h3, r3 = lanes_to_dev(pubs3, commits3)
+    dig = tab._digits_w4(s3, h3).contiguous()
     b3 = dig.shape[0]
-    err = compare("madd_chain_fused", tab.fused_chain(tables3, dig),
-                  tab._fused_chain_plain(tables3, dig), r3)
+    f_pt = tab.fused_chain(tables3, dig)
+    err = compare("madd_chain_fused", f_pt, tab._fused_chain_plain(tables3, dig), r3)
+    r3u = r3.to(torch.uint8)
+    finish_err = max(finish_err, compare_finish("fast_sync", f_pt, r3u))
     nbytes = tables3.numel() * 2 + 64 * 16 * 60 * 4 + dig.numel() * 4 + 4 * 20 * b3 * 4
     kernels.append(("madd_chain_fused", err, lambda: tab.fused_chain(tables3, dig),
                     lambda: tab._fused_chain_plain(tables3, dig), b3, nbytes))
@@ -542,9 +661,19 @@ def run(args) -> dict:
     k_pt, k_ok = lad.ladder(pub, ldig)
     p_pt, p_ok = lad._ladder_w4_plain(pub, ldig)
     err = compare("ladder", k_pt, p_pt, rr.to(torch.int32), a_ok=(k_ok, p_ok))
+    finish_err = max(finish_err, compare_finish("flat", k_pt, rr))
+    check_finish_edges(dev)
     nbytes = pub.numel() + ldig.numel() * 4 + 64 * 16 * 60 * 4 + (4 * 20 * 4 + 1) * b4
     kernels.append(("ladder", err, lambda: lad.ladder(pub, ldig),
                     lambda: lad._ladder_w4_plain(pub, ldig), b4, nbytes))
+    # the finish at the largest main-path shape (the window's 16k lanes),
+    # on the buffer the fused kernel left, as the main path reads it
+    fx, fy, fz = f_pt[:3]
+    nbytes = (3 * 20 * 4 + 32 + 1) * b3
+    kernels.append(("finish_encode_compare", finish_err,
+                    lambda: tab.finish_encode_compare(fx, fy, fz, r3u),
+                    lambda: tab._finish_encode_compare(fx.contiguous(), fy.contiguous(),
+                                                       fz.contiguous(), r3), b3, nbytes))
 
     report["stages"] = {
         "consensus": stage_times(dev, verifier, "entries", pubs2, commit),
@@ -600,6 +729,13 @@ def run(args) -> dict:
         })
         log({"phase": 1, **rows[-1]})
     report["kernels"] = rows
+    # the finish at each path's shape, on its chain's output as it lies
+    report["finish_ms"] = {
+        "consensus": cuda_ms(lambda: tab.finish_encode_compare(*e_pt[:3], r2u), args.reps),
+        "fast_sync": rows[-1]["ms"],
+        "flat": cuda_ms(lambda: tab.finish_encode_compare(*k_pt[:3], rr), args.reps),
+    }
+    log({"phase": "finish_ms", **report["finish_ms"]})
     return report
 
 

@@ -32,7 +32,7 @@ def summary(report: dict) -> dict:
     regs = {}
     name = None
     for ln in env.get("ptxas", []):
-        m = re.search(r"(ladder_kernel|madd_chain_fused_kernel|madd_chain_entries_kernel)", ln)
+        m = re.search(r"(ladder_kernel|madd_chain_fused_kernel|madd_chain_entries_kernel|finish_kernel)", ln)
         if m:
             name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -58,6 +58,8 @@ def summary(report: dict) -> dict:
         "device": {k: {"device_s": v.get("device_s"), "kernels": v.get("device_kernels"),
                        "busy_share": v.get("busy_share")} for k, v in dev.items()},
         "flat_launches": report.get("flat_launches"),
+        "finish_ms": report.get("finish_ms"),
+        "entries_table_sectors": report.get("entries_table_sectors"),
     }
 
 

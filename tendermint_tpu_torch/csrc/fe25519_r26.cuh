@@ -1,15 +1,15 @@
 // GF(2^255 - 19) and twisted-Edwards (a = -1) arithmetic in 10 signed
-// limbs of radix 2^26, held in int32, for madd_chain.cu (one lane per
-// thread, madd_chain_fused) and ladder.cu (ten threads per lane, one limb
-// each).
+// limbs of radix 2^26, held in int32, for every kernel of the port:
+// madd_chain.cu (madd_chain_entries: ten threads a lane, one limb each;
+// madd_chain_fused: one lane a thread), ladder.cu (ten threads a lane)
+// and finish.cu (one lane a thread).
 //
 // Boundary. The torch code and the comb tables use 20 limbs of radix
 // 2^13. 10 x 26 = 20 x 13 = 260 bits, so limb i here is exactly
 // l13[2i] + (l13[2i + 1] << 13) (`pack13`), and a result leaves through
 // `to_boundary`, which brings it back to the 20 x 13 loose range
 // [-608, 2^13 + 608) that the torch `fe_carry` produces (limbs 1..19 in
-// [0, 2^13)). 2^260 = 32 * 2^255 = 32 * 19 = 608 (mod p), as in
-// fe25519.cuh.
+// [0, 2^13)). 2^260 = 32 * 2^255 = 32 * 19 = 608 (mod p).
 //
 // Product. a * b is a 10 x 10 schoolbook into int64 columns. Column k
 // (k < 10) has weight 2^(26k) ("lo"); column k + 10 has weight
@@ -185,8 +185,8 @@ __device__ __forceinline__ void set_identity(int32_t X[NL], int32_t Y[NL], int32
 // whole-element helpers on int64 limbs (every thread of a group holds the
 // whole element after `gather`)
 
-// radix 2^26 -> 20 x 13 limbs with the two sequential carry passes of
-// fe25519.cuh: limbs 1..19 in [0, 2^13), limb 0 in [-608, 2^13 + 608)
+// radix 2^26 -> 20 x 13 limbs with two sequential carry passes: limbs
+// 1..19 in [0, 2^13), limb 0 in [-608, 2^13 + 608)
 __device__ __forceinline__ void to_boundary(int32_t out[2 * NL], const int64_t v[NL]) {
   int64_t c[2 * NL];
 #pragma unroll
@@ -275,6 +275,29 @@ __device__ __forceinline__ void gather(int64_t all[NL], int32_t mine, const Grou
 // limb k-1's value (limb 9's for k = 0)
 __device__ __forceinline__ int64_t from_below(int64_t v, const Group& g) {
   return __shfl_sync(FULL, v, g.base + (g.k + NL - 1) % NL);
+}
+
+// one coordinate of a lane into out (4, 20, B), back in the boundary
+// form: thread k writes limbs 2k and 2k + 1 (indices are compile-time in
+// the unrolled select, so the limbs stay in registers)
+__device__ __forceinline__ void gstore(int32_t* out, int coord, int32_t mine, const Group& g,
+                                       int64_t lane, int64_t B, bool active) {
+  int64_t v[NL];
+  gather(v, mine, g);
+  int32_t l13[2 * NL];
+  to_boundary(l13, v);
+  if (active) {
+    int32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      if (i == g.k) {
+        lo = l13[2 * i];
+        hi = l13[2 * i + 1];
+      }
+    }
+    out[(coord * 2 * NL + 2 * g.k) * B + lane] = lo;
+    out[(coord * 2 * NL + 2 * g.k + 1) * B + lane] = hi;
+  }
 }
 
 __device__ __forceinline__ int32_t gmul(int32_t a, int32_t b, const Group& g) {

@@ -1,6 +1,6 @@
 // Generic double-scalar verify for flat batches with no cached validator
 // set: per lane, decompress A, then [S]B + [h](-A) in extended
-// coordinates for the torch finish (batched inversion, encode, compare).
+// coordinates for the finish kernel (finish.cu: invert, encode, compare).
 //
 // Replaces tendermint_tpu/ops/ed25519_ladder_pallas.py::_ladder_pallas
 // (body _make_ladder_kernel, entry verify_kernel_pallas) together with
@@ -83,29 +83,6 @@ __device__ __forceinline__ bool gis_zero(int32_t a, const Group& g) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) z = z && v[i] == 0;
   return z;
-}
-
-__device__ __forceinline__ void store_coord(int32_t* out, int coord, int32_t mine,
-                                            const Group& g, int64_t lane, int64_t B,
-                                            bool active) {
-  int64_t v[NL];
-  gather(v, mine, g);
-  int32_t l13[2 * NL];
-  to_boundary(l13, v);
-  if (active) {
-    // thread k writes limbs 2k and 2k + 1; indices are compile-time in
-    // the unrolled select, so l13 stays in registers
-    int32_t lo = 0, hi = 0;
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      if (i == g.k) {
-        lo = l13[2 * i];
-        hi = l13[2 * i + 1];
-      }
-    }
-    out[(coord * 2 * NL + 2 * g.k) * B + lane] = lo;
-    out[(coord * 2 * NL + 2 * g.k + 1) * B + lane] = hi;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -210,10 +187,10 @@ __global__ void __launch_bounds__(kThreads)
 
   // -- 4. the two halves ------------------------------------------------------
   acc = gadd(acc, gcache(accb, d2, g), g);
-  store_coord(out, 0, acc.X, g, lane, B, active);
-  store_coord(out, 1, acc.Y, g, lane, B, active);
-  store_coord(out, 2, acc.Z, g, lane, B, active);
-  store_coord(out, 3, acc.T, g, lane, B, active);
+  gstore(out, 0, acc.X, g, lane, B, active);
+  gstore(out, 1, acc.Y, g, lane, B, active);
+  gstore(out, 2, acc.Z, g, lane, B, active);
+  gstore(out, 3, acc.T, g, lane, B, active);
   if (active && g.k == 0) a_ok[lane] = ok;
 }
 

@@ -1,73 +1,124 @@
-// Mixed-add chains of the comb-table verify path: the per-lane sum of
-// the selected affine entries, [S]B + [h](-A), left in extended
-// coordinates for the torch finish (batched inversion, encode, compare).
+// Mixed-add chains of the comb-table verify path: the per-lane sum
+// [S]B + [h](-A) of affine-precomputed entries, left in extended
+// coordinates for the finish kernel (finish.cu: invert, encode,
+// compare). Both chains select their own entries from the validator
+// tables (64, 16, 60, N) int16 and a fixed-base comb; lane
+// b = c * N + v verifies against validator v = b mod N, so any N and
+// any number of whole commits run. Field code: fe25519_r26.cuh.
 //
 // Replaces two Pallas kernels of the JAX package:
 //   madd_chain_entries  <- tendermint_tpu/ops/ed25519_tables.py
 //                          _sum_entries_pallas / _madd_chain_kernel
-//                          (96 mixed adds of entries already gathered)
+//                          (96 mixed adds of entries the XLA gather
+//                          `_select_entries` materialised: a gather is
+//                          slow on the TPU; here each lane reads its own)
 //   madd_chain_fused    <- tendermint_tpu/ops/ed25519_tables.py
 //                          _fused_chain_pallas / _make_fused_kernel
 //                          (128 mixed adds, each entry read from the
 //                          validator tables inside the kernel)
 //
-// Bound on this card: integer multiply-adds. A mixed add is 7 field
-// multiplies: entries 96 x 7 of 400 limb products (20 x 13-bit limbs,
-// fe25519.cuh), fused 128 x 7 + 9 of 100 (10 x 26-bit limbs,
-// fe25519_r26.cuh), against 96 x 240 or 128 x 120 bytes of entries a
-// lane (the fused tables cross memory once a launch); both chains are
-// set by the INT32 rate, not by memory.
+// madd_chain_entries. Steps 0..31 take the w = 8 comb entry picked by
+// byte w of S (`b_table`, 32 x 256 x 60 int32, 2 MB: stays in L2);
+// steps 32..95 the table entry [w][nibble w of h][:, v]. Ten threads a
+// lane, thread k holding limb k of X, Y, Z, T (the ladder's form): a
+// mixed add is 7 group multiplies, three lanes a warp, so 10,000 lanes
+// are 3,334 warps (25 a SM) where one thread a lane gave 157 blocks of
+// 2 warps. Thread k reads limbs 2k, 2k + 1 of each entry coordinate and
+// packs them; the next step's entry is loaded before this step's
+// additions, so its latency hides behind them. Chosen over splitting
+// the 96 steps among two or three one-lane threads joined by extended
+// additions (the fused kernel's shape): that form holds whole elements
+// in every thread (200 registers in the fused kernel, 2 blocks a SM)
+// and, at 10,000 lanes, gives 7 warps a SM to hide the scattered table
+// reads; the group form needs few registers and reuses the ladder's
+// field code.
 //
-// madd_chain_entries: one thread per lane, the accumulator (X, Y, Z, T:
-// 80 limbs) in registers for the whole chain, a loop over the steps in
-// place of the TPU's sequential grid axis; entries lane-minor (96, 60, B)
-// so neighbouring threads read neighbouring addresses.
+// Bound on this card: the table reads. The 60 limbs of an entry lie N
+// int16 apart and neighbouring lanes pick other nibbles, so a lane-step
+// touches 60 32-byte sectors, not 120 bytes: the bytes the kernel must
+// move are the distinct sectors its lanes touch (at most the table,
+// 122,880 bytes a validator: 1.23 GB at 10,000) plus S, h (256 bytes a
+// lane) and the output (320 bytes a lane); `chip_smoke.py` counts the
+// sectors of each run's digits. The operations, 96 x 7 multiplies of
+// 100 limb products a lane, take far less time at the INT32 rate.
 //
-// madd_chain_fused: see the kernel's comment. Lane b = c * N + v reads
-// validator v = b mod N; a block covers 8 validators of up to 8 commits,
-// so any N and any K >= 1 run.
+// madd_chain_fused: see the kernel's comment. A block covers 8
+// validators of up to 8 commits.
 #include <cuda_runtime.h>
 
-#include "fe25519.cuh"
 #include "fe25519_r26.cuh"
-
-using namespace fe25519;
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kEntryLimbs = 3 * NL;  // ypx | ymx | t2d
+constexpr int kL13 = 2 * r26::NL;            // 13-bit limbs of an element
+constexpr int kEntryLimbs = 3 * kL13;        // ypx | ymx | t2d
 
-__global__ void madd_chain_entries_kernel(const int32_t* __restrict__ ent,
-                                          int32_t* __restrict__ out, int64_t B,
-                                          int nsteps) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  int32_t X[NL], Y[NL], Z[NL], T[NL];
-  set_identity(X, Y, Z, T);
-#pragma unroll 1
-  for (int step = 0; step < nsteps; ++step) {
-    const int32_t* e = ent + static_cast<int64_t>(step) * kEntryLimbs * B + lane;
-    int32_t ypx[NL], ymx[NL], t2d[NL];
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      ypx[i] = __ldg(e + (0 * NL + i) * B);
-      ymx[i] = __ldg(e + (1 * NL + i) * B);
-      t2d[i] = __ldg(e + (2 * NL + i) * B);
-    }
-    madd(X, Y, Z, T, ypx, ymx, t2d);
+// -- madd_chain_entries: selection in the kernel, ten threads a lane ---------
+
+constexpr int kEntriesThreads = 128;
+constexpr int kLanesPerWarp = 3;
+constexpr int kLanesPerBlock = kLanesPerWarp * (kEntriesThreads / 32);
+constexpr int kCombSteps = 32;   // w = 8 comb of B
+constexpr int kEntrySteps = 96;  // then 64 steps of the validator tables
+
+struct Entry {
+  int32_t ypx, ymx, t2d;  // this thread's limb of each, radix 2^26
+};
+
+// Step `step`'s entry, limb k of each coordinate. s_row, h_row: the
+// lane's 32 bytes of S and h (int32 each); v: its validator.
+__device__ __forceinline__ Entry load_entry(int step, const int16_t* __restrict__ tables,
+                                            const int32_t* __restrict__ btab,
+                                            const int32_t* s_row, const int32_t* h_row,
+                                            int64_t N, int64_t v, int k) {
+  if (step < kCombSteps) {
+    const int byte = __ldg(s_row + step) & 0xFF;
+    const int32_t* e = btab + (step * 256 + byte) * kEntryLimbs + 2 * k;
+    return Entry{__ldg(e) + (__ldg(e + 1) << 13),
+                 __ldg(e + kL13) + (__ldg(e + kL13 + 1) << 13),
+                 __ldg(e + 2 * kL13) + (__ldg(e + 2 * kL13 + 1) << 13)};
   }
-  store_point(out, lane, B, X, Y, Z, T);
+  const int w = step - kCombSteps;
+  const int nib = (__ldg(h_row + (w >> 1)) >> (4 * (w & 1))) & 0xF;
+  const int16_t* e = tables + (static_cast<int64_t>(w * 16 + nib) * kEntryLimbs + 2 * k) * N + v;
+  const auto limb = [&](int i) { return static_cast<int32_t>(__ldg(e + i * N)); };
+  return Entry{limb(0) + (limb(1) << 13), limb(kL13) + (limb(kL13 + 1) << 13),
+               limb(2 * kL13) + (limb(2 * kL13 + 1) << 13)};
 }
 
-inline unsigned blocks_for(int64_t B) {
-  return static_cast<unsigned>((B + kThreads - 1) / kThreads);
-}
+__global__ void __launch_bounds__(kEntriesThreads)
+    madd_chain_entries_kernel(const int16_t* __restrict__ tables,
+                              const int32_t* __restrict__ btab,
+                              const int32_t* __restrict__ s, const int32_t* __restrict__ h,
+                              int32_t* __restrict__ out, int64_t B, int64_t N) {
+  const r26::Group g = r26::group_of_thread();
+  const int tid = threadIdx.x;
+  const int slot = (tid & 31) / r26::NL;  // 3: lanes 30, 31 of the warp
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kLanesPerBlock +
+                       (tid >> 5) * kLanesPerWarp + (slot < kLanesPerWarp ? slot : 0);
+  const bool active = slot < kLanesPerWarp && lane < B;
+  const int64_t row = lane < B ? lane : B - 1;  // junk threads read a real row
+  const int32_t* s_row = s + row * 32;
+  const int32_t* h_row = h + row * 32;
+  const int64_t v = row % N;
 
+  r26::GPoint acc = r26::gidentity(g);
+  Entry cur = load_entry(0, tables, btab, s_row, h_row, N, v, g.k);
+#pragma unroll 1
+  for (int step = 0; step < kEntrySteps; ++step) {
+    const int ahead = step + 1 < kEntrySteps ? step + 1 : step;
+    const Entry next = load_entry(ahead, tables, btab, s_row, h_row, N, v, g.k);
+    acc = r26::gmadd(acc, cur.ypx, cur.ymx, cur.t2d, g);
+    cur = next;
+  }
+  r26::gstore(out, 0, acc.X, g, lane, B, active);
+  r26::gstore(out, 1, acc.Y, g, lane, B, active);
+  r26::gstore(out, 2, acc.Z, g, lane, B, active);
+  r26::gstore(out, 3, acc.T, g, lane, B, active);
+}
 
 // -- madd_chain_fused: a validator tile staged once per window ---------------
 
-constexpr int kL13 = 2 * r26::NL;            // 13-bit limbs of an element
 constexpr int kTileV = 8;                   // validators a block
 constexpr int kMaxCommits = 8;              // commits a block
 constexpr int kSlabRows = 16 * kEntryLimbs;  // (digit, limb) rows of a window
@@ -217,13 +268,16 @@ __global__ void __launch_bounds__(2 * kTileV * kMaxCommits)
 
 extern "C" {
 
-// ent (nsteps, 60, B) int32 canonical limbs -> out (4, 20, B) int32
-int madd_chain_entries(const void* ent, void* out, long long B, int nsteps,
-                       void* stream) {
+// tables (64, 16, 60, N) int16, btab (32 * 256, 60) int32 comb, s and h
+// (B, 32) int32 bytes -> out (4, 20, B) int32; B a multiple of N
+int madd_chain_entries(const void* tables, const void* btab, const void* s, const void* h,
+                       void* out, long long B, long long N, void* stream) {
   if (B <= 0) return 0;
-  madd_chain_entries_kernel<<<blocks_for(B), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ent), static_cast<int32_t*>(out), B, nsteps);
+  const unsigned blocks = static_cast<unsigned>((B + kLanesPerBlock - 1) / kLanesPerBlock);
+  madd_chain_entries_kernel<<<blocks, kEntriesThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(tables), static_cast<const int32_t*>(btab),
+      static_cast<const int32_t*>(s), static_cast<const int32_t*>(h), static_cast<int32_t*>(out),
+      B, N);
   return static_cast<int>(cudaGetLastError());
 }
 

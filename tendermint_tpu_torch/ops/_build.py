@@ -34,9 +34,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 SIGNATURES = {
-    "madd_chain_entries": [_P, _P, _I64, ctypes.c_int, _P],
+    "madd_chain_entries": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "madd_chain_fused": [_P, _P, _P, _P, _I64, _I64, _P],
     "ladder": [_P, _P, _P, _P, _P, _I64, _P],
+    "finish_encode_compare": [_P, _P, _P, _I64, _I64, _P, ctypes.c_int, _P, _I64, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -10,8 +10,8 @@ decompression, a table of 16 multiples of -A and a 4-bit window for
 [h](-A), the w = 4 comb (`sb_table_w4`) for [S]B, one addition of the
 halves. Its plain version `_ladder_w4_plain` takes the same steps in
 torch and is the CPU path. The verdict is the table path's
-encode-and-compare (`_finish_encode_compare`) -- R is never
-decompressed.
+encode-and-compare (`finish_encode_compare`, a kernel of its own) -- R
+is never decompressed.
 
 `_build_inputs` and `_ladder_plain` are the JAX package's algorithm
 limb for limb: the torch prologue (per-lane table {O, B, -A, B-A} in
@@ -63,8 +63,8 @@ from tendermint_tpu_torch.ops.ed25519_tables import (
     _check_cuda,
     _coords,
     _digits_w4,
-    _finish_encode_compare,
     fe_batch_invert,
+    finish_encode_compare,
     pt_madd,
     sb_table_w4,
 )
@@ -233,7 +233,7 @@ def verify_kernel_ladder(pub_bytes, r_bytes, s_bytes, h_bytes):
     pub, r, s, h (B, 32) uint8 tensors -> (B,) bool, cofactorless
     [S]B + [h](-A) == R by byte-compare against the R encoding (the
     same verdicts as the JAX package's `verify_kernel`). The only torch
-    work before the kernel is the digit packing."""
+    work around the two kernels is the digit packing and the a_ok mask."""
     digits = _digits_w4(s_bytes.to(torch.int32), h_bytes.to(torch.int32))
     (x, y, z, _t), a_ok = ladder(pub_bytes.contiguous(), digits)
-    return _finish_encode_compare(x, y, z, r_bytes.to(torch.int32)) & a_ok
+    return finish_encode_compare(x, y, z, r_bytes) & a_ok

@@ -12,18 +12,23 @@ validator set that changes rarely, so:
   (32 windows x 256 entries: 32 mixed adds); the fused path a w=4 table
   (64 windows x 16 entries) so its 128 steps are all alike.
 * **No R decompression.** The computed point is encoded and compared
-  byte for byte with sig[:32]; affine normalization uses one batched
-  tree inversion.
+  byte for byte with sig[:32].
 
-Two kernels share the tables (`csrc/madd_chain.cu`):
+Three kernels (`csrc/madd_chain.cu`, `csrc/finish.cu`):
 
-* `sum_entries` — the materialized-entries chain: `_select_entries`
-  gathers the 96 affine entries of every lane, lane-minor, and the
-  kernel runs 96 mixed adds per lane. Single commits and small stacks take it.
-* `fused_chain` — selection fused into the chain: per lane 64 comb
-  steps and 64 validator-table steps, two threads a lane, each block
-  staging its validator tile's table slab once per window. Stacked
-  windows (K >= FUSED_MIN_STACK commits) take it.
+* `sum_entries` — 96 mixed adds per lane, each entry selected inside
+  the kernel from the w=8 comb and the validator tables, ten threads a
+  lane. Single commits and small stacks take it. Its plain version is
+  the JAX package's composition: the gather `_select_entries`, then
+  `_sum_entries_plain`.
+* `fused_chain` — per lane 64 comb steps and 64 validator-table steps,
+  two threads a lane, each block staging its validator tile's table
+  slab once per window. Stacked windows (K >= FUSED_MIN_STACK commits)
+  take it.
+* `finish_encode_compare` — the verdict of every verify path (these
+  two and the flat ladder): each lane inverts its Z, encodes and
+  compares with R. Its plain version `_finish_encode_compare` inverts
+  with one batched tree, as the JAX package does.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 torch version of the same function for CPU tensors.
@@ -53,6 +58,7 @@ from tendermint_tpu_torch.ops.ed25519_kernel import (
     fe_canon,
     fe_carry,
     fe_invert,
+    fe_is_zero,
     fe_mul,
     fe_sub,
     fe_to_bytes,
@@ -382,7 +388,7 @@ def tables_from_jax(tables_np, ok_np, device=None):
     return torch.from_numpy(np.ascontiguousarray(t)).to(dev), ok.copy()
 
 
-# -- verification: materialized-entries chain ---------------------------------
+# -- verification: the entries chain -----------------------------------------
 
 
 def _h_nibbles(h):
@@ -397,9 +403,9 @@ def _select_entries(a_tables, s, h):
     chosen by byte w of S; steps 32..95 take table entry
     [w][nibble w of h][:, b mod N] — lane b verifies against validator
     b mod N, so one validator set verifies K stacked commits with
-    B = K*N lanes. The gather writes the lane-minor layout the kernel
-    reads (the JAX package's is (NSTEPS, B, 60)), so nothing is
-    transposed on the way to it."""
+    B = K*N lanes. Lane-minor (the JAX package's is (NSTEPS, B, 60)).
+    The CPU path and the plain version only: the `madd_chain_entries`
+    kernel selects the same entries itself."""
     bsz = s.shape[0]
     n_vals = a_tables.shape[3]
     dev = s.device
@@ -418,8 +424,9 @@ def _select_entries(a_tables, s, h):
 
 
 def _sum_entries_plain(ent):
-    """Plain version of the `madd_chain_entries` kernel: NSTEPS mixed
-    adds from the identity; ent (NSTEPS, 60, B) int32."""
+    """With `_select_entries`, the plain version of the
+    `madd_chain_entries` kernel: NSTEPS mixed adds from the identity;
+    ent (NSTEPS, 60, B) int32."""
     acc = identity_point((ent.shape[2],), ent.device)
     for e in ent:
         e = e.T  # (B, 60)
@@ -443,19 +450,38 @@ def _coords(out):
     return tuple(out[c].T for c in range(4))
 
 
-def sum_entries(ent):
-    """ent (NSTEPS, 60, B) int32, lanes adjacent -> extended acc
-    (x, y, z, t), each (B, 20) int32. CUDA tensors launch
-    `madd_chain_entries`; CPU tensors run `_sum_entries_plain`."""
-    if ent.device.type == "cpu":
-        return _sum_entries_plain(ent)
-    bsz = ent.shape[2] if ent.dim() == 3 else -1
-    _check_cuda("ent", ent, torch.int32, (NSTEPS, 3 * NLIMBS, bsz))
-    out = torch.empty((4, NLIMBS, bsz), dtype=torch.int32, device=ent.device)
+def _check_whole_commits(a_tables, bsz):
+    """Lane b takes validator b mod N: B must be a positive multiple of
+    N, on the CPU as on the card."""
+    n_vals = a_tables.shape[3] if a_tables.dim() == 4 else -1
+    if n_vals <= 0 or bsz <= 0 or bsz % n_vals:
+        raise ValueError(f"B={bsz} lanes must be a positive multiple of N={n_vals}")
+    return n_vals
+
+
+def sum_entries(a_tables, s, h):
+    """a_tables (64, 16, 60, N) int16, s and h (B, 32) int32 bytes ->
+    extended acc (x, y, z, t), each (B, 20) int32: 96 mixed adds of the
+    entries `_select_entries` names. Lane b takes validator b mod N.
+    CUDA tensors launch `madd_chain_entries`, which selects the entries
+    itself; CPU tensors run `_sum_entries_plain(_select_entries(...))`."""
+    bsz = s.shape[0]
+    n_vals = _check_whole_commits(a_tables, bsz)
+    if s.device.type == "cpu":
+        return _sum_entries_plain(_select_entries(a_tables, s, h))
+    _check_cuda("a_tables", a_tables, torch.int16, (A_NWIN, 16, 3 * NLIMBS, n_vals))
+    _check_cuda("s", s, torch.int32, (bsz, 32))
+    _check_cuda("h", h, torch.int32, (bsz, 32))
+    if a_tables.device != s.device or h.device != s.device:
+        raise ValueError("a_tables, s and h must be on the same device")
+    dev = s.device
+    btab = _const(b_table(), dev)
+    out = torch.empty((4, NLIMBS, bsz), dtype=torch.int32, device=dev)
     lib = kernel_lib()
-    with torch.cuda.device(ent.device):
+    with torch.cuda.device(dev):
         rc = lib.madd_chain_entries(
-            ent.data_ptr(), out.data_ptr(), bsz, NSTEPS, stream_ptr(ent.device)
+            a_tables.data_ptr(), btab.data_ptr(), s.data_ptr(), h.data_ptr(),
+            out.data_ptr(), bsz, n_vals, stream_ptr(dev),
         )
     check(rc, "madd_chain_entries")
     sum_entries.launches += 1
@@ -499,10 +525,8 @@ def fused_chain(a_tables, digits):
     `madd_chain_fused`; CPU tensors run `_fused_chain_plain`. Lane b
     takes validator b mod N, and B must be whole commits (a multiple of
     N) on either device."""
-    n_vals = a_tables.shape[3] if a_tables.dim() == 4 else -1
     bsz = digits.shape[0]
-    if n_vals <= 0 or bsz <= 0 or bsz % n_vals:
-        raise ValueError(f"digits: B={bsz} lanes must be a positive multiple of N={n_vals}")
+    n_vals = _check_whole_commits(a_tables, bsz)
     if digits.device.type == "cpu":
         return _fused_chain_plain(a_tables, digits)
     _check_cuda("a_tables", a_tables, torch.int16, (A_NWIN, 16, 3 * NLIMBS, n_vals))
@@ -551,24 +575,22 @@ def verify_tables_kernel(a_tables, s_bytes, h_bytes, r_bytes, impl="auto"):
     """
     s = s_bytes.to(torch.int32)
     h = h_bytes.to(torch.int32)
-    r = r_bytes.to(torch.int32)
     bsz = s.shape[0]
-    n_vals = a_tables.shape[3]
-    if bsz % n_vals != 0:
-        raise ValueError(f"B={bsz} lanes must be a multiple of N={n_vals}")
+    n_vals = _check_whole_commits(a_tables, bsz)
     if impl == "auto":
         impl = "fused" if bsz // n_vals >= FUSED_MIN_STACK else "entries"
     if impl == "fused":
         x, y, z, _t = fused_chain(a_tables, _digits_w4(s, h))
     elif impl == "entries":
-        x, y, z, _t = sum_entries(_select_entries(a_tables, s, h))
+        x, y, z, _t = sum_entries(a_tables, s, h)
     else:
         raise ValueError(f"unknown impl {impl!r}")
-    return _finish_encode_compare(x, y, z, r)
+    return finish_encode_compare(x, y, z, r_bytes)
 
 
 def _finish_encode_compare(x, y, z, r):
-    """Affine-normalize via one tree inversion, encode y, compare to R."""
+    """Plain version of the `finish_encode_compare` kernel: affine-normalize
+    via one tree inversion, encode y, compare to R (int32 bytes)."""
     zinv = fe_batch_invert(fe_carry(z))
     x_aff = fe_canon(fe_mul(x, zinv))
     y_bytes = fe_to_bytes(fe_mul(y, zinv))
@@ -577,6 +599,51 @@ def _finish_encode_compare(x, y, z, r):
     r_clean = r.clone()
     r_clean[..., 31] &= 0x7F
     return torch.all(y_bytes == r_clean, dim=-1) & (parity == sign)
+
+
+def finish_encode_compare(x, y, z, r):
+    """x, y, z (B, 20) int32 extended coordinates in the chains' boundary
+    form, r (B, 32) uint8 or int32 bytes of R -> (B,) bool:
+    encode(x/z, y/z) == r. CUDA tensors launch the `finish_encode_compare`
+    kernel (one inversion a lane); CPU tensors run `_finish_encode_compare`.
+    A lane with z = 0 is false on either device. x, y, z may be contiguous or
+    the transposed rows of a chain's (4, 20, B) output, alike."""
+    if z.device.type == "cpu":
+        # the tree inverts every lane to 0 when one Z is 0; the z != 0
+        # test keeps such lanes false here as on the card
+        return _finish_encode_compare(x, y, z, r.to(torch.int32)) & ~fe_is_zero(z)
+    bsz = z.shape[0]
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        if t.device != z.device:
+            raise ValueError(f"{name}: expected a tensor on {z.device}, got {t.device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: expected torch.int32, got {t.dtype}")
+        if tuple(t.shape) != (bsz, NLIMBS):
+            raise ValueError(f"{name}: expected shape {(bsz, NLIMBS)}, got {tuple(t.shape)}")
+        if not (t.is_contiguous() or t.T.is_contiguous()) or t.stride() != z.stride():
+            raise ValueError(f"{name}: expected z's layout, contiguous or a transposed row")
+    if r.dtype not in (torch.uint8, torch.int32):
+        raise ValueError(f"r: expected torch.uint8 or torch.int32, got {r.dtype}")
+    _check_cuda("r", r, r.dtype, (bsz, 32))
+    if r.device != z.device:
+        raise ValueError("r must be on the device of x, y, z")
+    dev = z.device
+    ok = torch.empty((bsz,), dtype=torch.bool, device=dev)
+    if bsz == 0:
+        return ok
+    lane_stride, limb_stride = z.stride()
+    lib = kernel_lib()
+    with torch.cuda.device(dev):
+        rc = lib.finish_encode_compare(
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), lane_stride, limb_stride,
+            r.data_ptr(), r.element_size(), ok.data_ptr(), bsz, stream_ptr(dev),
+        )
+    check(rc, "finish_encode_compare")
+    finish_encode_compare.launches += 1
+    return ok
+
+
+finish_encode_compare.launches = 0
 
 
 # -- host-side lane prep ------------------------------------------------------

@@ -1,0 +1,47 @@
+"""Hand-made inputs with known answers, shared by the port's tests and
+`chip_smoke.py`; nothing on the verify path imports this module."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tendermint_tpu_torch.ops.ed25519_kernel import P, SQRT_M1, _int_to_limbs
+from tendermint_tpu_torch.ops.ed25519_tables import _B_EXT, host_affine, host_scalar_mul
+
+
+def finish_edge_lanes():
+    """Hand-made inputs of the encode-and-compare finish, from Python
+    ints: (x, y, z) each (n, 20) int32 canonical 13-bit limbs of
+    projective coordinates (Z != 0), r (n, 32) uint8 and the verdict
+    each lane must get. Lanes: a point of odd x and one of even x with
+    their encodings (sign bit set, cleared) and with the sign bit
+    flipped; the identity with its encoding, with the sign bit set and
+    with y = 1 + p (non-canonical); the order-4 point (sqrt(-1), 0)
+    with y = 0 and with y = p."""
+    pts = [host_affine(host_scalar_mul(k, _B_EXT)) for k in range(2, 12)]
+    odd = next(p for p in pts if p[0] & 1)
+    even = next(p for p in pts if not p[0] & 1)
+
+    def enc(y: int, sign: int) -> int:
+        return y | sign << 255
+
+    lanes = [
+        (odd, enc(odd[1], 1), True),
+        (even, enc(even[1], 0), True),
+        (odd, enc(odd[1], 0), False),
+        (even, enc(even[1], 1), False),
+        ((0, 1), enc(1, 0), True),
+        ((0, 1), enc(1, 1), False),
+        ((0, 1), enc(1 + P, 0), False),
+        ((SQRT_M1, 0), enc(0, SQRT_M1 & 1), True),
+        ((SQRT_M1, 0), enc(P, SQRT_M1 & 1), False),
+    ]
+    xs, ys, zs, rs, want = [], [], [], [], []
+    for i, ((x, y), r, ok) in enumerate(lanes):
+        z = (7919 * (i + 3) ** 5 + 1) % P  # any Z != 0
+        xs.append(_int_to_limbs(x * z % P))
+        ys.append(_int_to_limbs(y * z % P))
+        zs.append(_int_to_limbs(z))
+        rs.append(np.frombuffer(r.to_bytes(32, "little"), dtype=np.uint8))
+        want.append(ok)
+    return np.stack(xs), np.stack(ys), np.stack(zs), np.stack(rs), np.array(want)

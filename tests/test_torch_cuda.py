@@ -22,6 +22,7 @@ from tendermint_tpu_torch.crypto import ed25519_ref
 from tendermint_tpu_torch.ops import ed25519_kernel as T
 from tendermint_tpu_torch.ops import ed25519_ladder as TL
 from tendermint_tpu_torch.ops import ed25519_tables as TT
+from tendermint_tpu_torch.testing import finish_edge_lanes
 
 pytestmark = pytest.mark.cuda
 
@@ -80,13 +81,24 @@ def test_madd_chain_entries_matches_plain(dev, signed):
     pubs, commits = signed
     tables, _ok = TT.build_key_tables(np.frombuffer(b"".join(pubs), np.uint8).reshape(-1, 32), device=dev)
     s, h, r = _lanes(pubs, commits[:1], dev)
-    ent = TT._select_entries(tables, s, h)
     before = TT.sum_entries.launches
-    got = TT.sum_entries(ent)
+    got = TT.sum_entries(tables, s, h)
     assert TT.sum_entries.launches == before + 1
-    _same(got, TT._sum_entries_plain(ent))
-    verdict = TT._finish_encode_compare(*got[:3], r).cpu().numpy()
+    _same(got, TT._sum_entries_plain(TT._select_entries(tables, s, h)))
+    verdict = TT.finish_encode_compare(*got[:3], r).cpu().numpy()
     assert not verdict[3] and verdict.sum() == len(pubs) - 1
+
+
+@pytest.mark.parametrize("n", [1000, 13])
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_madd_chain_entries_shapes(dev, n, k):
+    """Selection in the kernel against the gather, for a ragged block of
+    lanes and every stack the entries chain takes (K < 8)."""
+    tables, _ok = TT.build_key_tables(_keys(n, 56), device=dev)
+    rng = np.random.default_rng(57 + k)
+    s, h = (torch.from_numpy(rng.integers(0, 256, (n * k, 32), dtype=np.int32)).to(dev) for _ in range(2))
+    got = TT.sum_entries(tables, s, h)
+    _same(got, TT._sum_entries_plain(TT._select_entries(tables, s, h)))
 
 
 def test_madd_chain_fused_matches_plain(dev, signed):
@@ -98,7 +110,7 @@ def test_madd_chain_fused_matches_plain(dev, signed):
     got = TT.fused_chain(tables, dig)
     assert TT.fused_chain.launches == before + 1
     _same_affine(got, TT._fused_chain_plain(tables, dig))
-    verdict = TT._finish_encode_compare(*got[:3], r).cpu().numpy()
+    verdict = TT.finish_encode_compare(*got[:3], r).cpu().numpy()
     assert not verdict[3] and verdict.sum() == verdict.size - 1
 
 
@@ -126,7 +138,7 @@ def test_ladder_matches_plain(dev, signed):
     assert torch.equal(ok, want_ok) and bool(ok.all())
     gtab, odig, _ok = TL._build_inputs(pub, s, h)  # the JAX-mirroring oracle
     _same_affine(got, TL._ladder_plain(gtab.contiguous(), odig))
-    verdict = TT._finish_encode_compare(*got[:3], r.int()).cpu().numpy()
+    verdict = TT.finish_encode_compare(*got[:3], r).cpu().numpy()
     assert not verdict[3] and verdict.sum() == len(pubs) - 1
 
 
@@ -155,22 +167,84 @@ def test_ladder_shapes(dev, lanes):
     assert torch.equal(ok, T.pt_decompress(pub_t)[1])
 
 
+def _encodings(point):
+    """R of each lane's affine point, as the plain finish computes it."""
+    x, y, z, _t = (c.contiguous() for c in point)
+    zinv = TT.fe_batch_invert(T.fe_carry(z))
+    r = T.fe_to_bytes(T.fe_mul(y, zinv))
+    r[:, 31] |= (T.fe_canon(T.fe_mul(x, zinv))[:, 0] & 1) << 7
+    return r.to(torch.uint8)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 1000, 10000])
+def test_finish_encode_compare_matches_plain(dev, lanes):
+    """Verdicts bit for bit against the tree-inversion plain version, on
+    ladder outputs with every third R forged and the hand-made lanes in
+    front, read as the (4, 20, B) buffer lies and contiguous, R as uint8
+    and int32."""
+    pub = torch.from_numpy(_keys(lanes, 58)).to(dev)
+    point, _ok = TL.ladder(pub, _nibbles(lanes, 59, dev))
+    r = _encodings(point)
+    r[::3, 5] ^= 1
+    ex, ey, ez, er, want = finish_edge_lanes()
+    m = min(lanes, len(want))
+    for c, e in zip(point[:3] + (r,), (ex, ey, ez, er)):
+        c[:m] = torch.from_numpy(e[:m]).to(dev)
+    plain = TT._finish_encode_compare(*(c.contiguous() for c in point[:3]), r.int())
+    for xyz in (point[:3], tuple(c.contiguous() for c in point[:3])):
+        before = TT.finish_encode_compare.launches
+        got = TT.finish_encode_compare(*xyz, r)
+        assert TT.finish_encode_compare.launches == before + 1
+        assert torch.equal(got, plain)
+        assert torch.equal(TT.finish_encode_compare(*xyz, r.int()), plain)
+    np.testing.assert_array_equal(got[:m].cpu().numpy(), want[:m])
+    if lanes > m:
+        assert not bool(got[m::3].any()) and bool(got[m + 1 :: 3].all()) and bool(got[m + 2 :: 3].all())
+
+
+def test_finish_encode_compare_is_false_where_z_is_zero(dev):
+    """The tree makes every inverse 0 when a Z is 0, so its verdict is
+    true for an all-zero R; the kernel's never is."""
+    zero = torch.zeros((2, 20), dtype=torch.int32, device=dev)
+    y = zero.clone()
+    y[1, 0] = 1
+    r = torch.zeros((2, 32), dtype=torch.uint8, device=dev)
+    r[1, 0] = 1
+    assert TT._finish_encode_compare(zero, y, zero, r.int()).cpu().tolist() == [True, False]
+    assert TT.finish_encode_compare(zero, y, zero, r).cpu().tolist() == [False, False]
+    assert TT.finish_encode_compare(zero.cpu(), y.cpu(), zero.cpu(), r.cpu()).tolist() == [False, False]
+
+
+def test_finish_encode_compare_launches_nothing_for_no_lanes(dev):
+    """B = 0 gives an empty verdict and leaves the launch count alone."""
+    before = TT.finish_encode_compare.launches
+    fe = torch.zeros((0, 20), dtype=torch.int32, device=dev)
+    got = TT.finish_encode_compare(fe, fe, fe, torch.zeros((0, 32), dtype=torch.uint8, device=dev))
+    assert got.shape == (0,) and got.dtype == torch.bool and got.device == fe.device
+    assert TT.finish_encode_compare.launches == before
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    ent = torch.zeros((TT.NSTEPS, 60, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
-        TT.sum_entries(ent.to(torch.int64))
-    with pytest.raises(ValueError):
-        TT.sum_entries(ent[:, :, ::2])
-    with pytest.raises(ValueError):
-        TT.sum_entries(ent.transpose(1, 2).contiguous())
     tables = torch.zeros((64, 16, 60, 4), dtype=torch.int16, device=dev)
+    sh = torch.zeros((8, 32), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        TT.sum_entries(tables, sh.long(), sh)
+    with pytest.raises(ValueError):
+        TT.sum_entries(tables, sh, sh[:, :31])
+    with pytest.raises(ValueError):
+        TT.sum_entries(tables.cpu(), sh, sh)
+    with pytest.raises(ValueError):
+        TT.sum_entries(tables, sh, sh.T.contiguous().T)
+    for lanes in (0, 2, 6):  # no lanes, fewer than N, not whole commits
+        with pytest.raises(ValueError):
+            TT.sum_entries(tables, sh[:lanes], sh[:lanes])
     with pytest.raises(ValueError):
         TT.fused_chain(tables.int(), torch.zeros((8, 128), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         TT.fused_chain(tables, torch.zeros((8, 127), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         TT.fused_chain(tables.cpu(), torch.zeros((8, 128), dtype=torch.int32, device=dev))
-    for lanes in (0, 2, 6):  # no lanes, fewer than N, not whole commits
+    for lanes in (0, 2, 6):
         with pytest.raises(ValueError):
             TT.fused_chain(tables, torch.zeros((lanes, 128), dtype=torch.int32, device=dev))
     pub = torch.zeros((8, 32), dtype=torch.uint8, device=dev)
@@ -183,6 +257,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         TL.ladder(pub[:4], dig)
     with pytest.raises(ValueError):
         TL.ladder(pub.cpu(), dig)
+    fe = torch.zeros((8, 20), dtype=torch.int32, device=dev)
+    wide = torch.zeros((8, 40), dtype=torch.int32, device=dev)
+    for bad in (
+        (fe.long(), fe, fe, pub),  # dtype
+        (fe, fe, fe, pub.float()),
+        (fe[:, :19], fe, fe, pub),  # shape
+        (fe, fe, fe, pub[:4]),
+        (fe, fe.cpu(), fe, pub),  # device
+        (fe, fe, fe, pub.cpu()),
+        (wide[:, ::2], wide[:, ::2], wide[:, ::2], pub),  # contiguity
+        (fe.T.contiguous().T, fe, fe, pub),  # layouts that differ
+        (fe, fe, fe, pub.T.contiguous().T),
+    ):
+        with pytest.raises(ValueError):
+            TT.finish_encode_compare(*bad)
 
 
 def test_verifier_on_the_card_launches_each_kernel(dev, signed):
@@ -190,13 +279,15 @@ def test_verifier_on_the_card_launches_each_kernel(dev, signed):
 
     pubs, commits = signed
     v = TableBatchVerifier(min_device_batch=0)
-    counts = (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches)
+    def counts():
+        return (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches,
+                TT.finish_encode_compare.launches)
+
+    before = counts()
     single = v.verify_commits(pubs, commits[:1])
     stacked = v.verify_commits(pubs, commits)
     flat = v.verify_batch([(pubs[i], commits[1][0][i], commits[1][1][i]) for i in range(len(pubs))])
-    assert (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches) == tuple(
-        c + 1 for c in counts
-    )
+    assert counts() == tuple(c + d for c, d in zip(before, (1, 1, 1, 3)))
     assert not single[0, 3] and single.sum() == len(pubs) - 1
     assert not stacked[0, 3] and stacked.sum() == stacked.size - 1
     assert flat.all()

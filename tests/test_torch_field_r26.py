@@ -289,3 +289,141 @@ def test_canon_of_loose_products(x, y):
     a, b = _operand(rng, 2), _operand(rng, 3)
     got = canon(fe_mul(a, b))
     assert value(got) == value(a) * value(b) % P
+
+
+# -- the finish (`csrc/finish.cu`): load, invert, canonical form, encode -------
+
+
+def load_fe(l13):
+    """20 boundary limbs (any int32 values) -> loose radix-2^26 limbs:
+    packed in int64, then two sequential carry passes."""
+    v = [l13[2 * i] + (l13[2 * i + 1] << 13) for i in range(NL)]
+    assert all(fits64(x) for x in v)
+    carry_seq(v)
+    carry_seq(v)
+    return v
+
+
+def sq_n(x, n, check):
+    for _ in range(n):
+        x = fe_mul(x, x, check)
+    return x
+
+
+def invert(z, check):
+    """z^(p - 2) with the kernel's chain: 254 squarings, 11 multiplies."""
+    z2 = fe_mul(z, z, check)
+    z9 = fe_mul(sq_n(z2, 2, check), z, check)
+    z11 = fe_mul(z9, z2, check)
+    z5 = fe_mul(fe_mul(z11, z11, check), z9, check)
+    z10 = fe_mul(sq_n(z5, 5, check), z5, check)
+    z20 = fe_mul(sq_n(z10, 10, check), z10, check)
+    z40 = fe_mul(sq_n(z20, 20, check), z20, check)
+    z50 = fe_mul(sq_n(z40, 10, check), z10, check)
+    z100 = fe_mul(sq_n(z50, 50, check), z50, check)
+    z200 = fe_mul(sq_n(z100, 100, check), z100, check)
+    z250 = fe_mul(sq_n(z200, 50, check), z50, check)
+    return fe_mul(sq_n(z250, 5, check), z11, check)
+
+
+def byte_of(v, j):
+    """Byte j of a canonical element, as the kernel cuts it."""
+    bit = 8 * j
+    i, off = divmod(bit, RADIX)
+    b = v[i] >> off
+    if off > RADIX - 8 and i + 1 < NL:
+        b |= v[i + 1] << (RADIX - off)
+    return b & 0xFF
+
+
+def finish(x13, y13, z13, r):
+    """The kernel's verdict for one lane: r a 32-byte string."""
+    inter = []
+    z = load_fe(z13)
+    zinv = invert(z, inter)
+    xc = canon(fe_mul(load_fe(x13), zinv, inter))
+    yc = canon(fe_mul(load_fe(y13), zinv, inter))
+    assert all(fits64(x) for x in inter)
+    same = any(canon(z))
+    for j in range(31):
+        same = same and r[j] == byte_of(yc, j)
+    return same and (r[31] & 0x7F) == byte_of(yc, 31) and (r[31] >> 7) & 1 == xc[0] & 1
+
+
+def limbs13(x):
+    return [(x >> (13 * i)) & 8191 for i in range(20)]
+
+
+@pytest.mark.parametrize(
+    "z", [1, 2, 19, P - 1, P - 2, 2**255 - 20, 2**254, 121665, 3**100 % P] + [
+        random.Random(7 + i).randrange(1, P) for i in range(6)
+    ]
+)
+def test_inversion_chain(z):
+    inter = []
+    got = invert(load_fe(limbs13(z)), inter)
+    assert all(fits64(x) for x in inter)
+    assert value(canon(got)) == pow(z, P - 2, P)
+
+
+def _loose_variants(x):
+    """x < 2^260 as 13-bit limbs, canonical and with a borrow that puts
+    limb 0 above 2^13 (the finish takes any int32 limbs)."""
+    out = [limbs13(x)]
+    for i in range(1, 20):
+        if out[0][i]:
+            v = list(out[0])
+            v[i] -= 1
+            v[i - 1] += 8192
+            out.append(v)
+            break
+    return out
+
+
+@pytest.mark.parametrize(
+    "x", [0, 1, P - 1, P, P + 1, 2**255 - 1, 2**255, 2 * P + 5, 2**260 - 1],
+    ids=["0", "1", "p-1", "p", "p+1", "2^255-1", "2^255", "2p+5", "2^260-1"],
+)
+def test_canonical_form_and_encoding(x):
+    """canon + byte_of give `fe_to_bytes`'s bytes and x's parity."""
+    from tendermint_tpu_torch.ops.ed25519_kernel import fe_to_bytes
+    import torch
+
+    want = (x % P).to_bytes(32, "little")
+    for l13 in _loose_variants(x):
+        c = canon(load_fe(l13))
+        assert value(c) == x % P and all(0 <= v <= MASK for v in c)
+        assert bytes(byte_of(c, j) for j in range(32)) == want
+        assert c[0] & 1 == (x % P) & 1
+    if x < 2**260 - 8192:  # the torch code takes its loose range
+        got = fe_to_bytes(torch.tensor([limbs13(x)], dtype=torch.int32))
+        assert bytes(got[0].tolist()) == want
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.lists(st.booleans(), min_size=20, max_size=20))
+def test_boundary_extremes_load(ends):
+    """Chain outputs at the ends of the boundary range: limb 0 at -608 or
+    2^13 + 607, limbs 1..19 at 0 or 2^13 - 1."""
+    l13 = [(8192 + 607 if ends[0] else -608)] + [8191 if e else 0 for e in ends[1:]]
+    x = sum(v << (13 * i) for i, v in enumerate(l13))
+    v = load_fe(l13)
+    assert v[0] >= -608 and v[0] < 2**26 + 608 and all(0 <= t <= MASK for t in v[1:])
+    c = canon(v)
+    assert value(c) == x % P
+    assert bytes(byte_of(c, j) for j in range(32)) == (x % P).to_bytes(32, "little")
+
+
+def test_finish_verdicts_on_hand_made_lanes():
+    """The model's verdicts on `finish_edge_lanes` (sign bit set and
+    cleared, flipped, y >= p, the identity, the order-4 point) and on
+    Z = 0, which is false whatever R is."""
+    from tendermint_tpu_torch.testing import finish_edge_lanes
+
+    x, y, z, r, want = finish_edge_lanes()
+    rows = [[list(map(int, c[i])) for c in (x, y, z)] for i in range(len(want))]
+    got = [finish(*row, bytes(r[i])) for i, row in enumerate(rows)]
+    assert got == list(want)
+    zero = [0] * 20
+    assert not finish(zero, zero, zero, bytes(32))
+    assert not finish(zero, limbs13(1), zero, (1).to_bytes(32, "little"))

@@ -159,7 +159,7 @@ def test_window_comb_ladder_matches_the_jax_algorithm():
     np.testing.assert_array_equal(ok.numpy(), want_ok.numpy())
     assert bool(g_tz.all())
     np.testing.assert_array_equal(g_xy[:, ok].numpy(), w_xy[:, ok].numpy())
-    verdict = TL._finish_encode_compare(*got[:3], torch.from_numpy(r).int()) & ok
+    verdict = TL.finish_encode_compare(*got[:3], torch.from_numpy(r)) & ok
     np.testing.assert_array_equal(verdict.numpy() & pre, _host_verdicts(triples) | (np.arange(8) == 6))
     assert list(verdict.numpy() & pre) == [True, False, False, False, False, True, True, True]
 

@@ -3,9 +3,10 @@
 Table builds, comb tables, lane prep and the two chains' plain versions
 are held against the JAX functions on the same numpy-seeded inputs:
 table entries byte for byte, chain outputs limb for limb (the JAX
-composition `_select_entries` -> loop of `pt_madd` ->
-`_finish_encode_compare` for the entries chain; the same with the w=4
-combs for the fused chain), verdicts exactly.
+composition `_select_entries` -> `_sum_entries_xla` ->
+`_finish_encode_compare` for the entries chain; a loop of `pt_madd`
+over the w=4 combs' entries for the fused chain), verdicts exactly; the
+encode-and-compare finish on chain outputs and hand-made lanes.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 from tendermint_tpu.crypto.keys import gen_priv_key
 from tendermint_tpu.ops import ed25519_tables as JT
 from tendermint_tpu_torch.ops import ed25519_tables as TT
+from tendermint_tpu_torch.testing import finish_edge_lanes
 
 # one intra-op thread: the suite runs several test processes side by side
 torch.set_num_threads(1)
@@ -179,6 +181,7 @@ def test_select_entries_matches_jax(tables, valset):
 
 
 _jax_madd = jax.jit(JT.pt_madd)  # one step compiled once, called per step
+_jax_finish = jax.jit(JT._finish_encode_compare)  # compiled once a shape
 
 
 def _jax_chain(entries, r):
@@ -188,7 +191,7 @@ def _jax_chain(entries, r):
     for e in entries:
         e = jnp.asarray(e)
         acc = _jax_madd(acc, (e[:, :20], e[:, 20:40], e[:, 40:]))
-    verdict = JT._finish_encode_compare(*acc[:3], jnp.asarray(r.astype(np.int32)))
+    verdict = _jax_finish(*acc[:3], jnp.asarray(r.astype(np.int32)))
     return acc, np.asarray(verdict)
 
 
@@ -198,12 +201,17 @@ def _check_chain(got_acc, want_acc):
 
 
 def test_entries_chain_matches_jax_composition(tables, valset):
+    """The wrapper's CPU path, `_sum_entries_plain(_select_entries(...))`,
+    against the JAX `_select_entries` + `_sum_entries_xla`, limb for limb."""
     pubs, commits, expected = valset
     s, h, r, pre = TT.prepare_commit_lanes(pubs, commits)
-    ent = TT._select_entries(tables[0], torch.from_numpy(s).int(), torch.from_numpy(h).int())
-    got_acc = TT.sum_entries(ent)
-    want_acc, want_v = _jax_chain(ent.permute(0, 2, 1).numpy(), r)
+    got_acc = TT.sum_entries(tables[0], torch.from_numpy(s).int(), torch.from_numpy(h).int())
+    ent = JT._select_entries(
+        jnp.asarray(tables[0].numpy()), jnp.asarray(s.astype(np.int32)), jnp.asarray(h.astype(np.int32))
+    )
+    want_acc = JT._sum_entries_xla(ent)
     _check_chain(got_acc, want_acc)
+    want_v = np.asarray(_jax_finish(*want_acc[:3], jnp.asarray(r.astype(np.int32))))
     got_v = TT.verify_tables_kernel(tables[0], *(torch.from_numpy(a) for a in (s, h, r)), impl="entries")
     np.testing.assert_array_equal(got_v.numpy(), want_v)
     mask = got_v.numpy() & pre & np.tile(tables[1], 2)
@@ -258,3 +266,47 @@ def test_fused_chain_takes_whole_commits_only(lanes):
     tbl = torch.zeros((TT.A_NWIN, 16, 60, 5), dtype=torch.int16)
     with pytest.raises(ValueError):
         TT.fused_chain(tbl, torch.zeros((lanes, TT.NSTEPS_W4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("lanes", [0, 3, 7])
+def test_sum_entries_takes_whole_commits_only(lanes):
+    """The entries chain refuses what the fused chain refuses."""
+    tbl = torch.zeros((TT.A_NWIN, 16, 60, 5), dtype=torch.int16)
+    zeros = torch.zeros((lanes, 32), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        TT.sum_entries(tbl, zeros, zeros)
+
+
+def test_finish_encode_compare_matches_jax(tables, valset):
+    """The wrapper's CPU path against the JAX `_finish_encode_compare`, in
+    one batch: the entries chain's outputs and the hand-made lanes of
+    `finish_edge_lanes`, whose verdicts are known; R as uint8 and int32."""
+    pubs, commits, _expected = valset
+    s, h, r, _pre = TT.prepare_commit_lanes(pubs, commits)
+    chain = TT.sum_entries(tables[0], torch.from_numpy(s).int(), torch.from_numpy(h).int())
+    ex, ey, ez, er, verdicts = finish_edge_lanes()
+    x, y, z = (torch.cat([c, torch.from_numpy(e)]) for c, e in zip(chain, (ex, ey, ez)))
+    rr = np.concatenate([r, er])
+    want = np.asarray(_jax_finish(*(jnp.asarray(c.numpy()) for c in (x, y, z)), jnp.asarray(rr.astype(np.int32))))
+    for r_t in (torch.from_numpy(rr), torch.from_numpy(rr).int()):
+        np.testing.assert_array_equal(TT.finish_encode_compare(x, y, z, r_t).numpy(), want)
+    np.testing.assert_array_equal(want[len(r):], verdicts)
+
+
+def test_finish_encode_compare_is_false_where_z_is_zero():
+    """The tree inverts every lane to 0 when one Z is 0, so the plain
+    version's verdict is true for an all-zero R there; the wrapper's CPU
+    path, like the kernel, makes a Z = 0 lane false and leaves the other
+    lanes of the batch as they were."""
+    ex, ey, ez, er, verdicts = (torch.from_numpy(a) for a in finish_edge_lanes())
+    zero = torch.zeros((2, 20), dtype=torch.int32)
+    y0 = zero.clone()
+    y0[1, 0] = 1
+    r0 = torch.zeros((2, 32), dtype=torch.uint8)
+    r0[1, 0] = 1
+    assert TT._finish_encode_compare(zero, y0, zero, r0.int()).tolist() == [True, False]
+    assert TT.finish_encode_compare(zero, y0, zero, r0).tolist() == [False, False]
+    x, y, z = (torch.cat([zero, c]) for c in (ex, ey, ez))
+    got = TT.finish_encode_compare(x, torch.cat([y0, ey]), z, torch.cat([r0, er]))
+    assert got[:2].tolist() == [False, False]
+    assert torch.equal(TT.finish_encode_compare(ex, ey, ez, er), verdicts)

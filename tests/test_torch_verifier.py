@@ -101,14 +101,14 @@ def test_flat_batches_take_the_ladder_on_cpu(privs, monkeypatch):
         (TL, "pt_decompress"),
         (TL, "fe_batch_invert"),
         (TL, "_ladder_w4_plain"),
-        (TL, "_finish_encode_compare"),
+        (TL, "finish_encode_compare"),
     ):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real: seen.append(_n) or _f(*a))
     triples = _flat(privs)
     got = V.DeviceBatchVerifier(device="cpu", min_device_batch=0).verify_batch(triples)
     np.testing.assert_array_equal(got, JaxHostVerifier().verify_batch(triples))
-    assert seen == ["_digits_w4", "_ladder_w4_plain", "_finish_encode_compare"]
+    assert seen == ["_digits_w4", "_ladder_w4_plain", "finish_encode_compare"]
 
 
 @pytest.mark.parametrize("n", [1, 9])
@@ -251,14 +251,20 @@ def test_empty_inputs():
 
 
 def test_cpu_tensors_never_count_a_launch(table_verifier, privs):
-    before = (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches)
+    before = (
+        TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches,
+        TT.finish_encode_compare.launches,
+    )
     pubs = [p.pub_key.data for p in privs]
     stack = [_commit(privs, b"c%d" % i) for i in range(TT.FUSED_MIN_STACK)]
     table_verifier.verify_commits(pubs, stack)  # fused chain
     table_verifier.verify_commits(pubs, [_commit(privs, b"d")])  # entries chain
     table_verifier.verify_batch(_flat(privs))
-    after = (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches)
-    assert before == after == (0, 0, 0)
+    after = (
+        TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches,
+        TT.finish_encode_compare.launches,
+    )
+    assert before == after == (0, 0, 0, 0)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
