@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ed25519 verify path once on the card.
+"""Drive the PyTorch/CUDA port's ed25519 verify path and Merkle hash
+plane once on the card.
 
     python3 chip_smoke.py            # one CUDA card, about 2-4 minutes
 
@@ -20,24 +21,42 @@ bytes):
    `ladder` kernel (decompression, [h](-A) and [S]B in one kernel);
    every phase ends in the `finish_encode_compare` kernel (invert,
    encode, compare with R);
+5. hash plane (bytes made from --seed): the data_hash of a block of
+   65,536 txs of 250 bytes through `TreeHasher(device).root_from_items`
+   for `sha256` and `ripemd160` (one leaf launch, 16 `merkle_level`
+   launches a call), each root bit-equal to the host tree, 5 warm calls
+   timed beside the host tree (Merkle leaves/s); `merkle_roots_forest`
+   over 16 blocks of 1-4,096 txs of 1-1,024 bytes (a 1-tx block and a
+   power of two among them); the state-sync gate, `leaf_hashes` over
+   8,192 chunks of 64 KiB and `root_from_hashes` over the result, against
+   hashlib and the host tree; `sha512_batch` over 4,096 messages of 305
+   bytes (R || A || M) against hashlib; then the stages of one call
+   (padding, copy in, leaf kernel, levels, copy back), the card's kernels
+   in one data_hash call (torch.profiler) and the host-vs-card crossover
+   at 256-65k leaves;
 1. kernel vs plain: each kernel against its plain torch version on the
    card, on the inputs its phase gave it (the entries chain also at
    4096 lanes and at 3 commits of the fast-sync set), compared exactly
    on the canonical affine coordinates (x, y), T * Z == X * Y, the
    verdicts and, for the ladder, a_ok; the finish on all three chains'
    outputs and on hand-made lanes (sign bit set and cleared, y >= p,
-   the identity, Z = 0) (everything is an integer: tolerance 0); then
+   the identity, Z = 0); the hash kernels at the data_hash block (the two
+   leaf passes, the first level of both trees), every level of the
+   forest (both trees) and the SHA-512 batch,
+   word for word (everything is an integer: tolerance 0); then
    a per-stage breakdown of one call of each phase, the card's kernel
    time in one call of each phase (torch.profiler) and the flat
-   prologue's kernel count, and each kernel and plain version timed
-   with CUDA events. Each kernel's bound is the larger of the limb
+   prologue's kernel count, and each kernel and its plain version timed
+   with CUDA events around a call (a hash kernel by torch.profiler, its
+   device time a launch). Each kernel's bound is the larger of the limb
    products its function needs (100 a field multiply, 55 a squaring;
    FE_OPS_PER_LANE, and for the finish a batched inversion's count, not
    its kernel's per-lane chain) and the bytes it must move
    (madd_chain_entries: the distinct 32-byte table sectors its lanes
-   touch).
+   touch); a hash kernel's bound counts the compressions its rows need
+   (INSTR_PER_COMPRESSION, `hash_ops`) and the blocks they read.
 
-Every phase plants a forged signature, an absent vote, an S >= L, an
+Every verify phase plants a forged signature, an absent vote, an S >= L, an
 invalid pubkey encoding and a wrong-length signature, and its verdicts
 must equal the expected mask exactly. Launch counts are zeroed just
 before each main-path phase and read just after; a phase whose kernel
@@ -100,6 +119,7 @@ FE_OPS_PER_CALL = {"finish_encode_compare": (11, 254)}
 # kernels a flat call ran when torch decompressed A, built B - A and
 # inverted before the ladder (PERF.md, run F)
 EAGER_PROLOGUE_FLAT_CALL_KERNELS = 33818
+# name -> (source, the JAX function it replaces)
 KERNEL_INFO = {
     "madd_chain_entries": (
         "tendermint_tpu_torch/csrc/madd_chain.cu",
@@ -113,12 +133,105 @@ KERNEL_INFO = {
         "tendermint_tpu_torch/csrc/ladder.cu",
         "tendermint_tpu/ops/ed25519_ladder_pallas.py:155",
     ),
-    # an XLA stage of the JAX package, not a Pallas kernel
+    # XLA stages of the JAX package, not Pallas kernels
     "finish_encode_compare": (
         "tendermint_tpu_torch/csrc/finish.cu",
         "tendermint_tpu/ops/ed25519_tables.py:895",
     ),
+    "sha256_masked": (
+        "tendermint_tpu_torch/csrc/hash.cu",
+        "tendermint_tpu/ops/sha256_kernel.py:91",
+    ),
+    "ripemd160_masked": (
+        "tendermint_tpu_torch/csrc/hash.cu",
+        "tendermint_tpu/ops/ripemd160_kernel.py:118",
+    ),
+    "sha512_masked": (
+        "tendermint_tpu_torch/csrc/hash.cu",
+        "tendermint_tpu/ops/sha512_kernel.py:129",
+    ),
+    "merkle_level": (
+        "tendermint_tpu_torch/csrc/hash.cu",
+        "tendermint_tpu/ops/merkle_kernel.py:106",
+    ),
 }
+# 32-bit instructions of one compression, counted from the kernels' code
+# (csrc/sha256.cuh, ripemd160.cuh, sha512.cuh) as the card can issue it,
+# as (logic functions and shifts, all): a logic function of three words
+# is one LOP3, a sum of three words one IADD3, a rotate or a shift across
+# two words one funnel shift (SHF); a 64-bit operation is two. SHA-256:
+# 48 schedule steps of 10 (8 LOP3/SHF), 64 rounds of 14 (10), 8
+# additions; RIPEMD-160: 160 steps of 3 LOP3/SHF and 3 additions (2
+# where K = 0), 5 sums; SHA-512: 64 schedule steps of 20 (16), 80 rounds
+# of 28 (20), 8 additions of 2.
+INSTR_PER_COMPRESSION = {
+    "sha256": (48 * 8 + 64 * 10, 48 * 10 + 64 * 14 + 8),
+    "ripemd160": (160 * 3, 128 * 6 + 32 * 5 + 5),
+    "sha512": (64 * 16 + 80 * 20, 64 * 20 + 80 * 28 + 8 * 2),
+}
+LEAF_KERNEL = {"sha256": "sha256_masked", "ripemd160": "ripemd160_masked"}
+# the hash kernels' symbols as the profiler reports them: their `ms` is
+# the profiler's device time a launch, since a CUDA-event pair around one
+# 10-60 us launch times mostly the launch; the verify kernels keep the
+# event time of a call, as in their earlier rows, so trees stay comparable
+PROFILED = {
+    "sha256_masked": "sha256_masked_kernel",
+    "ripemd160_masked": "ripemd160_masked_kernel",
+    "sha512_masked": "sha512_masked_kernel",
+    "merkle_level": "merkle_level_kernel",
+}
+# the hash phase's sizes: a block of TXS txs of TX_BYTES (tm-bench's
+# default tx size; BASELINE config 4's 65k-tx block), a fast-sync window
+# of FOREST_TREES blocks of 1 to FOREST_MAX_TXS txs, the state-sync gate
+# over CHUNKS chunks of CHUNK_BYTES (statesync/snapshot.py), SHA512_MSGS
+# messages of R || A || M, HASH_REPS warm calls
+TXS = 65536
+TX_BYTES = 250
+FOREST_TREES = 16
+FOREST_MAX_TXS = 4096
+CHUNKS = 8192
+CHUNK_BYTES = 65536
+SHA512_MSGS = 4096
+HASH_REPS = 5
+
+
+def sha256_folded(block: list) -> tuple[int, int]:
+    """(logic functions and shifts, all) instructions of one SHA-256
+    compression of a block whose words are ints where known when the
+    kernel is compiled, None where known only at run time: the unrolled
+    schedule folds a step whose terms are all constants, and a sigma of a
+    constant or a zero term costs nothing; the 64 rounds and 8 additions
+    are as in INSTR_PER_COMPRESSION (K is read from the constant bank, so
+    W[t] + K[t] does not fold)."""
+    rotr = lambda x, n: ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF  # noqa: E731
+    sigma = (
+        lambda x: rotr(x, 7) ^ rotr(x, 18) ^ (x >> 3),
+        lambda x: rotr(x, 17) ^ rotr(x, 19) ^ (x >> 10),
+    )
+    w = list(block)
+    alu, total = 64 * 10, 64 * 14 + 8
+    for t in range(16, 64):
+        terms = [w[t - 16], w[t - 7]]
+        for f, x in zip(sigma, (w[t - 15], w[t - 2])):
+            if x is None:  # two rotates, a shift, one LOP3
+                alu, total = alu + 4, total + 4
+            terms.append(None if x is None else f(x))
+        known = sum(x for x in terms if x is not None) & 0xFFFFFFFF
+        unknown = terms.count(None)
+        k = unknown + (known != 0)
+        total += k // 2  # one IADD3 adds three terms
+        w.append(None if unknown else known)
+    return alu, total
+
+
+# an inner node of the SHA-256 tree: a block of 16 run-time words, then
+# R's last byte, the pad byte, 14 zeros and the bit length 520; and the 18
+# instructions that build its message words (one funnel shift each, two
+# for the second block's first word)
+INSTR_PER_SHA256_INNER_NODE = tuple(
+    a + b + 18
+    for a, b in zip(INSTR_PER_COMPRESSION["sha256"], sha256_folded([None] + [0] * 14 + [65 * 8]))
+)
 
 
 def sh(cmd: list[str]) -> str:
@@ -230,12 +343,20 @@ def wrappers() -> dict:
         fused_chain,
         sum_entries,
     )
+    from tendermint_tpu_torch.ops.merkle_kernel import merkle_level
+    from tendermint_tpu_torch.ops.ripemd160_kernel import ripemd160_masked
+    from tendermint_tpu_torch.ops.sha256_kernel import sha256_masked
+    from tendermint_tpu_torch.ops.sha512_kernel import sha512_masked
 
     return {
         "madd_chain_entries": sum_entries,
         "madd_chain_fused": fused_chain,
         "ladder": ladder,
         "finish_encode_compare": finish_encode_compare,
+        "sha256_masked": sha256_masked,
+        "ripemd160_masked": ripemd160_masked,
+        "sha512_masked": sha512_masked,
+        "merkle_level": merkle_level,
     }
 
 
@@ -355,8 +476,25 @@ def products(fe_ops: tuple[int, int]) -> int:
     return muls * PRODUCTS_PER_FE_MUL + squarings * PRODUCTS_PER_FE_SQ
 
 
-def bound_ms(name: str, lanes: int, nbytes: int, clock_hz: float, sms: int) -> tuple[float, str]:
-    ops = lanes * products(FE_OPS_PER_LANE[name]) + products(FE_OPS_PER_CALL.get(name, (0, 0)))
+def hash_ops(instr: tuple[int, int], count: int) -> float:
+    """`count` times `instr` (logic functions and shifts, all) as INT32
+    operations of the 64-lane rate: a SM issues at most 128 lanes of
+    instructions a clock (four schedulers of 32), LOP3 and SHF run only on
+    the 64-lane ALU pipe, and an addition may also issue on the FMA pipe
+    (as IMAD), so the least is the larger of the two."""
+    alu, total = instr
+    return count * max(alu, total / 2)
+
+
+def fe_ops(name: str, lanes: int) -> int:
+    """32-bit limb products an ed25519 kernel's function needs."""
+    return lanes * products(FE_OPS_PER_LANE[name]) + products(FE_OPS_PER_CALL.get(name, (0, 0)))
+
+
+def bound_ms(ops: float, nbytes: int, clock_hz: float, sms: int) -> tuple[float, str]:
+    """The least time for `ops` 32-bit integer operations at the 64-lane
+    INT32 rate and `nbytes` moved, the larger of the two, and which one
+    sets it."""
     t_ops = ops / (INT32_LANES_PER_SM_CLOCK * sms * clock_hz)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -439,6 +577,303 @@ def device_time(fn) -> dict:
             for e in top
         ],
     }
+
+
+def byte_items(rng, lens) -> list[bytes]:
+    """Random byte strings of the given lengths, cut from one buffer."""
+    ends = np.cumsum(lens)
+    buf = rng.bytes(int(ends[-1]))
+    return [buf[e - n : e] for n, e in zip(np.asarray(lens).tolist(), ends.tolist())]
+
+
+def max_err(got, want) -> int:
+    """Largest absolute difference of two int32 word tensors (0 when equal)."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes differ: {tuple(got.shape)} / {tuple(want.shape)}")
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) if got.numel() else 0
+
+
+def kernel_ms(fn, symbol: str, reps: int) -> tuple[float, int]:
+    """Device milliseconds of one launch of the kernel named `symbol`,
+    from torch.profiler over `reps` calls of `fn`, and the launches it
+    recorded: the mean over those (it has dropped one of five
+    back-to-back 30 us launches); raises when it recorded fewer than
+    `reps` - 1 or more than `reps`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and symbol in e.key]
+    seen = sum(e.count for e in hits)
+    if not max(1, reps - 1) <= seen <= reps:
+        raise AssertionError(f"the profiler saw {seen} launches of {symbol} in {reps} calls")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / seen, seen
+
+
+def hash_stage_times(dev, items, algo, levels: bool = True) -> dict:
+    """Seconds of each stage of one tree build (or, levels=False, one
+    leaf-hash pass), the card synchronised after each: padding on the
+    host, copy to the card, the leaf kernel, the levels, the copy back."""
+    import torch
+
+    from tendermint_tpu_torch.ops import merkle_kernel as mk
+    from tendermint_tpu_torch.ops.sha256_kernel import to_u32, to_words
+
+    out = {}
+    clock = [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = now - clock[0]
+        clock[0] = now
+
+    blocks, n_blocks = mk._pad_leaves(items, algo)
+    mark("padding_s")
+    b, n = to_words(blocks, dev), to_words(n_blocks, dev)
+    mark("to_device_s")
+    digs = mk._leaf_kernel(algo)(b, n)
+    mark("leaf_kernel_s")
+    if levels:
+        digs = mk.merkle_root_from_leaf_words(digs, algo=algo, device=dev)[None]
+        mark("levels_s")
+    mk._to_bytes(algo)(to_u32(digs))
+    mark("copy_back_s")
+    return out
+
+
+def run_hash(seed: int, dev, sync) -> tuple[dict, dict, tuple]:
+    """The hash phase's main path, each step with the launch counts set
+    to 0 just before it and read just after: a 65,536-tx block's
+    data_hash for both tree variants, a forest, the state-sync gate and a
+    SHA-512 batch, at the sizes of the module's constants. Returns the
+    report, the summed launches and the inputs (txs, forest, chunks,
+    SHA-512 messages)."""
+    import hashlib
+
+    from tendermint_tpu_torch.merkle import simple as host
+    from tendermint_tpu_torch.ops import merkle_kernel as mk
+    from tendermint_tpu_torch.ops.padding import digests_to_bytes_be, pad_sha512
+    from tendermint_tpu_torch.ops.sha256_kernel import to_u32
+    from tendermint_tpu_torch.ops.sha512_kernel import sha512_batch
+    from tendermint_tpu_torch.services.hasher import TreeHasher
+
+    rng = np.random.default_rng(seed + 5)
+    rep: dict = {}
+    launches = dict.fromkeys(("sha256_masked", "ripemd160_masked", "sha512_masked", "merkle_level"), 0)
+
+    def add(c, expect: dict, what: str) -> dict:
+        got = {k: c[k] for k in launches}
+        for k, v in expect.items():
+            if got[k] != v:
+                raise AssertionError(f"{what}: {k} launched {got[k]} times, expected {v}")
+        for k in launches:
+            launches[k] += got[k]
+        return got
+
+    def host_median(fn) -> tuple[float, list]:
+        times = []
+        for _ in range(HASH_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), times
+
+    # block data_hash: TXS transactions of TX_BYTES
+    t0 = time.perf_counter()
+    txs = byte_items(rng, np.full(TXS, TX_BYTES))
+    rep["tx_gen_s"] = time.perf_counter() - t0
+    levels = mk._next_pow2(TXS).bit_length() - 1
+    rep["data_hash"] = {}
+    for algo in ("sha256", "ripemd160"):
+        want = host.simple_hash_from_byte_slices(txs, algo)
+        host_s, host_all = host_median(lambda: host.simple_hash_from_byte_slices(txs, algo))
+        hasher = TreeHasher(algo=algo, device=dev)
+        got = []
+        reset_counts()
+        cold = timed(lambda: got.append(hasher.root_from_items(txs)), sync)
+        warm = [timed(lambda: got.append(hasher.root_from_items(txs)), sync) for _ in range(HASH_REPS)]
+        calls = 1 + HASH_REPS
+        c = add(counts(), {LEAF_KERNEL[algo]: calls, "merkle_level": calls * levels}, f"data_hash {algo}")
+        if any(g != want for g in got):
+            raise AssertionError(f"data_hash {algo}: the card's root differs from the host tree's")
+        med = statistics.median(warm)
+        d = {
+            "txs": TXS,
+            "tx_bytes": TX_BYTES,
+            "root": want.hex(),
+            "cold_s": cold,
+            "warm_s_median": med,
+            "warm_s": warm,
+            "leaves_per_s": TXS / med,
+            "host_s_median": host_s,
+            "host_s": host_all,
+            "host_leaves_per_s": TXS / host_s,
+            "launches": c,
+        }
+        rep["data_hash"][algo] = d
+        log({"phase": "hash", "part": "data_hash", "algo": algo, **{k: v for k, v in d.items() if k != "warm_s"}})
+
+    # forest: a fast-sync window of blocks, 1..FOREST_MAX_TXS txs of 1..1024 bytes
+    sizes = rng.integers(1, FOREST_MAX_TXS + 1, FOREST_TREES)
+    sizes[0], sizes[-1] = 1, FOREST_MAX_TXS  # a 1-tx tree and a power of two
+    trees = [byte_items(rng, rng.integers(1, 1025, k)) for k in sizes]
+    rep["forest"] = {"trees": FOREST_TREES, "txs": int(sizes.sum())}
+    for algo in ("sha256", "ripemd160"):
+        t0 = time.perf_counter()
+        want = [host.simple_hash_from_byte_slices(t, algo) for t in trees]
+        host_s = time.perf_counter() - t0
+        got = []
+        reset_counts()
+        dt = timed(lambda: got.append(mk.merkle_roots_forest(trees, algo, dev)), sync)
+        c = add(counts(), {LEAF_KERNEL[algo]: 1}, f"forest {algo}")
+        if got[0] != want:
+            raise AssertionError(f"forest {algo}: roots differ from the host tree's")
+        rep["forest"][algo] = {"s": dt, "host_s": host_s, "launches": c}
+    log({"phase": "hash", "part": "forest", **rep["forest"]})
+
+    # state-sync gate: CHUNKS chunks of CHUNK_BYTES, their leaf hashes and root
+    t0 = time.perf_counter()
+    chunks = byte_items(rng, np.full(CHUNKS, CHUNK_BYTES))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_leaves = [hashlib.sha256(b"\x00" + c).digest() for c in chunks]
+    host_leaf_s = time.perf_counter() - t0
+    want_root = host.simple_hash_from_hashes(want_leaves)
+    hasher = TreeHasher(algo="sha256", device=dev)
+    got = []
+    reset_counts()
+    cold = timed(lambda: got.append(hasher.leaf_hashes(chunks)), sync)
+    warm = timed(lambda: got.append(hasher.leaf_hashes(chunks)), sync)
+    roots = []
+    root_s = timed(lambda: roots.append(hasher.root_from_hashes(got[-1])), sync)
+    sync_levels = mk._next_pow2(CHUNKS).bit_length() - 1
+    c = add(counts(), {"sha256_masked": 2, "merkle_level": sync_levels}, "state-sync gate")
+    if any(g != want_leaves for g in got) or roots[0] != want_root:
+        raise AssertionError("state-sync gate: leaf hashes or root differ from hashlib and the host tree")
+    rep["state_sync"] = {
+        "chunks": CHUNKS,
+        "chunk_bytes": CHUNK_BYTES,
+        "gen_s": gen_s,
+        "cold_leaf_hashes_s": cold,
+        "warm_leaf_hashes_s": warm,
+        "host_leaf_hashes_s": host_leaf_s,
+        "root_from_hashes_s": root_s,
+        "launches": c,
+    }
+    log({"phase": "hash", "part": "state_sync", **rep["state_sync"]})
+
+    # SHA-512 of R || A || M, as long as the flat phase's
+    msgs = byte_items(rng, np.full(SHA512_MSGS, 64 + MSG_LEN))
+    blocks, n_blocks = pad_sha512(msgs)
+    reset_counts()
+    out = []
+    dt = timed(lambda: out.append(sha512_batch(blocks, n_blocks, dev)), sync)
+    c = add(counts(), {"sha512_masked": 1}, "sha512")
+    if digests_to_bytes_be(to_u32(out[0])) != [hashlib.sha512(m).digest() for m in msgs]:
+        raise AssertionError("sha512_batch differs from hashlib")
+    rep["sha512"] = {"msgs": SHA512_MSGS, "msg_bytes": 64 + MSG_LEN, "s": dt, "launches": c}
+    log({"phase": "hash", "part": "sha512", **rep["sha512"]})
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the hash phase did not launch {name}")
+    return rep, launches, (txs, trees, chunks, msgs)
+
+
+def hash_kernels(dev, txs, trees, msgs) -> list:
+    """The four hash kernels against their plain versions on the card, at
+    the data_hash block (leaf passes and the first level, both variants),
+    every level of the forest (mixed counts: unpaired nodes promoted) and
+    the SHA-512 batch; entries for the kernels line."""
+    import torch
+
+    from tendermint_tpu_torch.ops import merkle_kernel as mk
+    from tendermint_tpu_torch.ops import ripemd160_kernel as hr
+    from tendermint_tpu_torch.ops import sha256_kernel as hs
+    from tendermint_tpu_torch.ops import sha512_kernel as h5
+    from tendermint_tpu_torch.ops.padding import pad_sha512
+    from tendermint_tpu_torch.ops.sha256_kernel import to_words
+
+    entries = []
+    level_err = 0
+    plains = {"sha256": hs._sha256_masked, "ripemd160": hr._ripemd160_masked}
+    n = len(txs)
+    p = mk._next_pow2(n)
+    for algo in ("sha256", "ripemd160"):
+        blocks, n_blocks = mk._pad_leaves(txs, algo)
+        b, nb = to_words(blocks, dev), to_words(n_blocks, dev)
+        kern, plain = mk._leaf_kernel(algo), plains[algo]
+        digs = kern(b, nb)
+        err = max_err(digs, plain(b, nb))
+        if err:
+            raise AssertionError(f"{LEAF_KERNEL[algo]}: kernel disagrees with its plain version ({err})")
+        comps = int(n_blocks.sum())
+        width = mk.WIDTHS[algo]
+        entries.append((LEAF_KERNEL[algo], err, lambda k=kern, b=b, nb=nb: k(b, nb),
+                        lambda f=plain, b=b, nb=nb: f(b, nb), n,
+                        hash_ops(INSTR_PER_COMPRESSION[algo], comps), comps * 64 + 4 * n + 4 * width * n))
+        nodes = torch.cat([digs, digs.new_zeros((p - n, width))]).view(1, p, width)
+        counts_t = torch.tensor([n], dtype=torch.int32, device=dev)
+        level_err = max(level_err, max_err(mk.merkle_level(nodes, counts_t, 0, algo),
+                                           mk._merkle_level(nodes, counts_t, 0, algo)))
+        f_nodes, f_counts = mk.forest_leaves(trees, algo, dev)
+        for lv in range(f_nodes.shape[1].bit_length() - 1):
+            got = mk.merkle_level(f_nodes, f_counts, lv, algo)
+            level_err = max(level_err, max_err(got, mk._merkle_level(f_nodes, f_counts, lv, algo)))
+            f_nodes = got
+        if level_err:
+            raise AssertionError(f"merkle_level ({algo}): kernel disagrees with its plain version ({level_err})")
+        if algo == "sha256":
+            level = (nodes, counts_t, hash_ops(INSTR_PER_SHA256_INNER_NODE, n // 2), nodes.numel() * 4 * 3 // 2 + 4)
+    nodes, counts_t, ops, nbytes = level
+    entries.append(("merkle_level", level_err, lambda: mk.merkle_level(nodes, counts_t, 0),
+                    lambda: mk._merkle_level(nodes, counts_t, 0), p // 2, ops, nbytes))
+    blocks, n_blocks = pad_sha512(msgs)
+    b, nb = to_words(blocks, dev), to_words(n_blocks, dev)
+    err = max_err(h5.sha512_masked(b, nb), h5._sha512_masked(b, nb))
+    if err:
+        raise AssertionError(f"sha512_masked: kernel disagrees with its plain version ({err})")
+    comps = int(n_blocks.sum())
+    entries.append(("sha512_masked", err, lambda: h5.sha512_masked(b, nb), lambda: h5._sha512_masked(b, nb),
+                    len(msgs), hash_ops(INSTR_PER_COMPRESSION["sha512"], comps), comps * 128 + 4 * len(msgs) + 64 * len(msgs)))
+    return entries
+
+
+def hash_profile(dev, sync, rep, txs, chunks) -> None:
+    """After the main path: stage breakdowns, the card's kernels in one
+    data_hash call (torch.profiler) and the host-vs-card crossover."""
+    from tendermint_tpu_torch.merkle import simple as host
+    from tendermint_tpu_torch.ops import merkle_kernel as mk
+    from tendermint_tpu_torch.services.hasher import TreeHasher
+
+    rep["stages"] = {algo: hash_stage_times(dev, txs, algo) for algo in ("sha256", "ripemd160")}
+    rep["stages"]["state_sync_leaves"] = hash_stage_times(dev, chunks, "sha256", levels=False)
+    log({"phase": "hash", "part": "stages", **rep["stages"]})
+    rep["device"] = {}
+    for algo in ("sha256", "ripemd160"):
+        hasher = TreeHasher(algo=algo, device=dev)
+        d = device_time(lambda: hasher.root_from_items(txs))
+        wall = rep["data_hash"][algo]["warm_s_median"]
+        d["wall_s"] = wall
+        d["busy_share"] = d["device_s"] / wall if d["device_s"] is not None else None
+        rep["device"][algo] = d
+        log({"phase": "hash", "part": "device", "algo": algo, **{k: v for k, v in d.items() if k != "top"}})
+    cross = []
+    for n in sorted({min(k, len(txs)) for k in (256, 1024, 4096, 8192, 16384, 65536)}):
+        items = txs[:n]
+        mk.merkle_root_device(items, "sha256", dev)  # warm
+        dev_s = statistics.median(timed(lambda: mk.merkle_root_device(items, "sha256", dev), sync) for _ in range(3))
+        host_s = statistics.median(timed(lambda: host.simple_hash_from_byte_slices(items), sync) for _ in range(3))
+        cross.append({"leaves": n, "device_s": dev_s, "host_s": host_s})
+    rep["crossover_sha256"] = cross
+    log({"phase": "hash", "part": "crossover", "sha256": cross})
 
 
 def run(args) -> dict:
@@ -613,8 +1048,14 @@ def run(args) -> dict:
     log(p4)
     report["flat"] = p4
 
-    # -- phase 1: each kernel against its plain version, then timed ----------
     dev = verifier.device
+
+    # -- phase 5: the hash plane ----------------------------------------------
+    hrep, hlaunches, (txs, trees, chunks, sha512_msgs) = run_hash(args.seed, dev, sync)
+    launches.update(hlaunches)
+    report["hash"] = hrep
+
+    # -- phase 1: each kernel against its plain version, then timed ----------
 
     def lanes_to_dev(pubs, commits):
         s, h, r, _pre = tab.prepare_commit_lanes(pubs, commits)
@@ -641,7 +1082,8 @@ def run(args) -> dict:
     nbytes, sectors = entries_bytes(tables2, s, h)
     report["entries_table_sectors"] = sectors
     kernels.append(("madd_chain_entries", err, lambda: tab.sum_entries(tables2, s, h),
-                    lambda: tab._sum_entries_plain(tab._select_entries(tables2, s, h)), b2, nbytes))
+                    lambda: tab._sum_entries_plain(tab._select_entries(tables2, s, h)), b2,
+                    fe_ops("madd_chain_entries", b2), nbytes))
     # fused chain at the fast-sync window's shape
     s3, h3, r3 = lanes_to_dev(pubs3, commits3)
     dig = tab._digits_w4(s3, h3).contiguous()
@@ -652,7 +1094,7 @@ def run(args) -> dict:
     finish_err = max(finish_err, compare_finish("fast_sync", f_pt, r3u))
     nbytes = tables3.numel() * 2 + 64 * 16 * 60 * 4 + dig.numel() * 4 + 4 * 20 * b3 * 4
     kernels.append(("madd_chain_fused", err, lambda: tab.fused_chain(tables3, dig),
-                    lambda: tab._fused_chain_plain(tables3, dig), b3, nbytes))
+                    lambda: tab._fused_chain_plain(tables3, dig), b3, fe_ops("madd_chain_fused", b3), nbytes))
     # ladder at the flat batch's shape (the bucket of 4096 lanes)
     pub, rr, ss, hh, _pre = prepare_batch(pubs4, msgs4, sigs4)
     pub, rr, ss, hh = (torch.from_numpy(a).to(dev) for a in (pub, rr, ss, hh))
@@ -665,7 +1107,7 @@ def run(args) -> dict:
     check_finish_edges(dev)
     nbytes = pub.numel() + ldig.numel() * 4 + 64 * 16 * 60 * 4 + (4 * 20 * 4 + 1) * b4
     kernels.append(("ladder", err, lambda: lad.ladder(pub, ldig),
-                    lambda: lad._ladder_w4_plain(pub, ldig), b4, nbytes))
+                    lambda: lad._ladder_w4_plain(pub, ldig), b4, fe_ops("ladder", b4), nbytes))
     # the finish at the largest main-path shape (the window's 16k lanes),
     # on the buffer the fused kernel left, as the main path reads it
     fx, fy, fz = f_pt[:3]
@@ -673,7 +1115,10 @@ def run(args) -> dict:
     kernels.append(("finish_encode_compare", finish_err,
                     lambda: tab.finish_encode_compare(fx, fy, fz, r3u),
                     lambda: tab._finish_encode_compare(fx.contiguous(), fy.contiguous(),
-                                                       fz.contiguous(), r3), b3, nbytes))
+                                                       fz.contiguous(), r3), b3,
+                    fe_ops("finish_encode_compare", b3), nbytes))
+
+    kernels += hash_kernels(dev, txs, trees, sha512_msgs)
 
     report["stages"] = {
         "consensus": stage_times(dev, verifier, "entries", pubs2, commit),
@@ -705,14 +1150,20 @@ def run(args) -> dict:
         "eager_prologue_call_kernels": EAGER_PROLOGUE_FLAT_CALL_KERNELS,
     }
     log({"phase": "flat_launches", **report["flat_launches"]})
+    hash_profile(dev, sync, hrep, txs, chunks)
+    del chunks
 
     rows = []
-    for name, err, kern, plain, lanes, nbytes in kernels:
+    for name, err, kern, plain, lanes, ops, nbytes in kernels:
         kern()  # warm
-        ms = cuda_ms(kern, args.reps)
-        plain_ms = cuda_ms(plain, 1)
-        bms, by = bound_ms(name, lanes, nbytes, clock_hz, sms)
         src, replaces = KERNEL_INFO[name]
+        if name in PROFILED:
+            ms, seen = kernel_ms(kern, PROFILED[name], args.reps)
+            timing = {"ms_by": "profiler", "profiled_launches": seen}
+        else:
+            ms, timing = cuda_ms(kern, args.reps), {"ms_by": "events"}
+        plain_ms = cuda_ms(plain, 1)
+        bms, by = bound_ms(ops, nbytes, clock_hz, sms)
         rows.append({
             "name": name,
             "route": "cuda",
@@ -725,6 +1176,7 @@ def run(args) -> dict:
             "bound_ms": bms,
             "bound_by": by,
             "library_ms": None,
+            **timing,
             "lanes": lanes,
         })
         log({"phase": 1, **rows[-1]})
@@ -732,7 +1184,7 @@ def run(args) -> dict:
     # the finish at each path's shape, on its chain's output as it lies
     report["finish_ms"] = {
         "consensus": cuda_ms(lambda: tab.finish_encode_compare(*e_pt[:3], r2u), args.reps),
-        "fast_sync": rows[-1]["ms"],
+        "fast_sync": next(row["ms"] for row in rows if row["name"] == "finish_encode_compare"),
         "flat": cuda_ms(lambda: tab.finish_encode_compare(*k_pt[:3], rr), args.reps),
     }
     log({"phase": "finish_ms", **report["finish_ms"]})

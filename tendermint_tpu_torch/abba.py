@@ -9,7 +9,10 @@ other on the same card (each run at most RUN_TIMEOUT_S), keeps each run's output
 and `chip_smoke.json` under `chiprun_out/abba/`, and prints one summary
 line a run: each kernel's time and registers, the three calls' wall
 times, the flat call's torch prologue and the card's kernel count and
-busy share per call. It exits non-zero when any run fails.
+busy share per call. It exits non-zero when any run fails, and stops
+when the two trees time a kernel's `ms` by different means (`ms_by`:
+CUDA events around a call, or the profiler's device time a launch; a
+row without the key was timed by events).
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ def summary(report: dict) -> dict:
     return {
         "card": env.get("nvidia_smi"),
         "kernels": {
-            k["name"]: {"ms": k["ms"], "bound_ms": k["bound_ms"], "plain_ms": k["plain_ms"],
-                        "launches": k["launches"], "max_abs_err": k["max_abs_err"]}
+            k["name"]: {"ms": k["ms"], "ms_by": k.get("ms_by", "events"), "bound_ms": k["bound_ms"],
+                        "plain_ms": k["plain_ms"], "launches": k["launches"], "max_abs_err": k["max_abs_err"]}
             for k in report.get("kernels", [])
         },
         "ptxas": regs,
@@ -63,6 +66,13 @@ def summary(report: dict) -> dict:
     }
 
 
+def timing_mismatch(a: dict, b: dict) -> list[str]:
+    """Kernels that both summaries list but whose `ms` they measured by
+    different means."""
+    ka, kb = a["kernels"], b["kernels"]
+    return sorted(n for n in ka.keys() & kb.keys() if ka[n]["ms_by"] != kb[n]["ms_by"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("before")
@@ -72,6 +82,7 @@ def main() -> int:
     out.mkdir(parents=True, exist_ok=True)
     trees = {"a": pathlib.Path(args.before), "b": pathlib.Path(args.after)}
     failed = False
+    first: dict = {}
     for i, key in enumerate(ORDER):
         tree = trees[key]
         tag = f"{i}_{key}"
@@ -86,9 +97,14 @@ def main() -> int:
             shutil.copy(rep_path, out / f"{tag}.json")
             rep_path.unlink()
             line.update(summary(json.loads((out / f"{tag}.json").read_text())))
+            first.setdefault(key, line)
         else:
             failed = True
         print(json.dumps(line), flush=True)
+        if len(first) == 2 and (bad := timing_mismatch(first["a"], first["b"])):
+            print(f"abba: the trees time {', '.join(bad)} by different means; their ms do not compare",
+                  file=sys.stderr)
+            return 2
     return 1 if failed else 0
 
 

@@ -38,6 +38,10 @@ SIGNATURES = {
     "madd_chain_fused": [_P, _P, _P, _P, _I64, _I64, _P],
     "ladder": [_P, _P, _P, _P, _P, _I64, _P],
     "finish_encode_compare": [_P, _P, _P, _I64, _I64, _P, ctypes.c_int, _P, _I64, _P],
+    "sha256_masked": [_P, _P, _P, _I64, _I64, _P],
+    "ripemd160_masked": [_P, _P, _P, _I64, _I64, _P],
+    "sha512_masked": [_P, _P, _P, _I64, _I64, _P],
+    "merkle_level": [_P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,0 +1,116 @@
+"""TreeHasher: batched Merkle tree construction service.
+
+Counterpart of `tendermint_tpu/services/hasher.py`: the `TreeHasher` seam
+that `Txs.hash`, `Block.fill_header` / `validate_basic`, `evidence_hash`
+and the state-sync chunk gate call. The device backend hashes all leaves
+in one kernel launch and reduces the tree in log2(N) launches on the
+card (`ops/merkle_kernel.py`); the host backend is the bit-identical
+sequential reference (`merkle/simple.py`). Both tree variants run:
+`sha256` (the framework's) and `ripemd160` (the reference-compatible
+tree). Proofs stay on the host.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+import torch
+
+from tendermint_tpu_torch.device import resolve_device
+from tendermint_tpu_torch.merkle import simple as host_merkle
+
+# Below this leaf count the host's hashlib tree answers. On the H100 the
+# card's tree of 250-byte leaves beat the host's from 1,024 leaves and
+# lost at 256 (PERF.md, "Host-vs-card crossover"); 8,192 keeps the JAX
+# package's routing, so both packages send the same blocks to the device.
+DEVICE_MIN_LEAVES = int(os.environ.get("TENDERMINT_TPU_MIN_DEVICE_LEAVES", "8192"))
+
+
+class TreeHasher:
+    """Merkle root/proof builder with host and device backends. The device
+    backend runs on the card unless `device` says otherwise, and raises
+    without a card and without a device."""
+
+    def __init__(
+        self,
+        backend: str = "device",
+        algo: str = "sha256",
+        min_device_leaves: int | None = None,
+        device=None,
+    ) -> None:
+        if backend not in ("device", "host"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if algo not in ("sha256", "ripemd160"):
+            raise ValueError(f"unknown algo {algo!r}")
+        self.algo = algo
+        self.backend = backend
+        self.device = resolve_device(device) if backend == "device" else None
+        self.min_device_leaves = (
+            DEVICE_MIN_LEAVES if min_device_leaves is None else min_device_leaves
+        )
+
+    def _use_device(self, n: int) -> bool:
+        return self.backend == "device" and n >= max(2, self.min_device_leaves)
+
+    def root_from_items(self, items: list[bytes]) -> bytes:
+        """SimpleMerkle root over raw byte leaves (leaf-prefixed hashes)."""
+        if self._use_device(len(items)):
+            from tendermint_tpu_torch.ops.merkle_kernel import merkle_root_device
+
+            return merkle_root_device(items, self.algo, self.device)
+        return host_merkle.simple_hash_from_byte_slices(items, self.algo)
+
+    def root_from_hashes(self, hashes: list[bytes]) -> bytes:
+        """Root over already-hashed leaves (PartSet/Commit aggregation)."""
+        if self._use_device(len(hashes)):
+            from tendermint_tpu_torch.ops.merkle_kernel import merkle_root_from_leaf_words
+            from tendermint_tpu_torch.ops.padding import digests_to_bytes_be, digests_to_bytes_le
+            from tendermint_tpu_torch.ops.sha256_kernel import to_u32
+
+            # sha256 digests are big-endian words; ripemd160 little-endian
+            dt, to_bytes = (
+                (">u4", digests_to_bytes_be) if self.algo == "sha256" else ("<u4", digests_to_bytes_le)
+            )
+            words = np.frombuffer(b"".join(hashes), dtype=dt).astype(np.uint32).reshape(len(hashes), -1)
+            root = merkle_root_from_leaf_words(words, algo=self.algo, device=self.device)
+            return to_bytes(to_u32(root)[None, :])[0]
+        return host_merkle.simple_hash_from_hashes(hashes, self.algo)
+
+    def leaf_hashes(self, items: list[bytes]) -> list[bytes]:
+        """Per-item domain-separated leaf hashes (state-sync chunk
+        verification): one kernel launch above the threshold, host
+        hashlib below it."""
+        if self._use_device(len(items)):
+            from tendermint_tpu_torch.ops.merkle_kernel import leaf_hashes_device
+
+            return leaf_hashes_device(items, self.algo, self.device)
+        return [host_merkle.leaf_hash(x, self.algo) for x in items]
+
+    def proofs(self, items: list[bytes]):
+        """Merkle proofs stay on the host: O(N log N) pointer work, tiny data."""
+        return host_merkle.simple_proofs_from_byte_slices(items, self.algo)
+
+
+_DEFAULTS: dict[torch.device, TreeHasher] = {}
+_DEFAULTS_LOCK = threading.Lock()
+
+
+def default_hasher(device=None) -> TreeHasher:
+    """Process-wide device hasher, one per device: on the card, or on
+    `device` when given. Raises when no card is present and no device was
+    given."""
+    dev = resolve_device(device)
+    with _DEFAULTS_LOCK:
+        if dev not in _DEFAULTS:
+            _DEFAULTS[dev] = TreeHasher(backend="device", device=dev)
+        return _DEFAULTS[dev]
+
+
+def auto_hasher(device=None) -> TreeHasher:
+    """A new device-backed hasher on the card (or on `device`), for a node's
+    composition root. Raises without a card and without a device: it never
+    answers with the host backend on its own (`TreeHasher(backend="host")`
+    is there on request)."""
+    return TreeHasher(backend="device", device=resolve_device(device))

@@ -291,3 +291,161 @@ def test_verifier_on_the_card_launches_each_kernel(dev, signed):
     assert not single[0, 3] and single.sum() == len(pubs) - 1
     assert not stacked[0, 3] and stacked.sum() == stacked.size - 1
     assert flat.all()
+
+
+# -- the hash plane: sha256_masked, ripemd160_masked, sha512_masked, merkle_level
+
+
+def _hash_modules():
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.ops import ripemd160_kernel as HR
+    from tendermint_tpu_torch.ops import sha256_kernel as HS
+    from tendermint_tpu_torch.ops import sha512_kernel as H5
+
+    return HS, HR, H5, MK
+
+
+def _masked(name):
+    HS, HR, H5, _MK = _hash_modules()
+    return {
+        "sha256_masked": (HS.sha256_masked, HS._sha256_masked, 16),
+        "ripemd160_masked": (HR.ripemd160_masked, HR._ripemd160_masked, 16),
+        "sha512_masked": (H5.sha512_masked, H5._sha512_masked, 32),
+    }[name]
+
+
+def _random_blocks(bsz, mb, words, seed, dev):
+    """Random words and block counts 0..M, one row past M and one below
+    0 (both clamped, as the JAX mask treats them)."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, 2**32, (bsz, mb, words), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    n = rng.integers(0, mb + 1, bsz).astype(np.int32)
+    n[0] = 0
+    if bsz > 2:
+        n[1], n[2] = mb + 3, -1
+    return torch.from_numpy(blocks).to(dev), torch.from_numpy(n).to(dev)
+
+
+@pytest.mark.parametrize("name", ["sha256_masked", "ripemd160_masked", "sha512_masked"])
+@pytest.mark.parametrize("bsz,mb", [(1, 1), (1, 3), (77, 4), (1025, 2)])
+def test_masked_hash_matches_plain(dev, name, bsz, mb):
+    kernel, plain, words = _masked(name)
+    blocks, n = _random_blocks(bsz, mb, words, 71 + bsz, dev)
+    before = kernel.launches
+    got = kernel(blocks, n)
+    assert kernel.launches == before + 1
+    assert torch.equal(got, plain(blocks, n))
+
+
+@pytest.mark.parametrize("name", ["sha256_masked", "ripemd160_masked", "sha512_masked"])
+def test_masked_hash_equals_hashlib(dev, name):
+    import hashlib
+
+    from tendermint_tpu_torch.ops import padding as HP
+
+    kernel, _plain, _words = _masked(name)
+    rng = np.random.default_rng(72)
+    msgs = [rng.bytes(n) for n in (0, 55, 56, 64, 111, 112, 128, 305, 1000)]
+    pad, ref, to_bytes = {
+        "sha256_masked": (HP.pad_sha256, hashlib.sha256, HP.digests_to_bytes_be),
+        "ripemd160_masked": (HP.pad_ripemd160, lambda m: hashlib.new("ripemd160", m), HP.digests_to_bytes_le),
+        "sha512_masked": (HP.pad_sha512, hashlib.sha512, HP.digests_to_bytes_be),
+    }[name]
+    blocks, n = pad(msgs)
+    got = kernel(torch.from_numpy(blocks.view(np.int32)).to(dev), torch.from_numpy(n).to(dev))
+    assert to_bytes(got.cpu().numpy().view(np.uint32)) == [ref(m).digest() for m in msgs]
+
+
+@pytest.mark.parametrize("algo", ["sha256", "ripemd160"])
+def test_merkle_level_matches_plain(dev, algo):
+    """Every level of a forest of 5 trees of 8 slots (counts 1, 2, 5, 7,
+    8), kernel against plain version."""
+    _HS, _HR, _H5, MK = _hash_modules()
+    width = MK.WIDTHS[algo]
+    rng = np.random.default_rng(73)
+    nodes = torch.from_numpy(rng.integers(0, 2**32, (5, 8, width), dtype=np.uint64).astype(np.uint32).view(np.int32))
+    nodes = nodes.to(dev)
+    counts = torch.tensor([1, 2, 5, 7, 8], dtype=torch.int32, device=dev)
+    for level in range(3):
+        before = MK.merkle_level.launches
+        got = MK.merkle_level(nodes, counts, level, algo)
+        assert MK.merkle_level.launches == before + 1
+        assert torch.equal(got, MK._merkle_level(nodes, counts, level, algo))
+        nodes = got
+
+
+@pytest.mark.parametrize("algo", ["sha256", "ripemd160"])
+def test_forest_on_the_card_equals_the_host_tree(dev, algo):
+    """A forest with T > 1, a 1-leaf tree and a power of two; one leaf
+    launch and one level launch a level (P = 16: 4 levels)."""
+    from tendermint_tpu_torch.merkle import simple as host
+
+    HS, HR, _H5, MK = _hash_modules()
+    rng = np.random.default_rng(74)
+    trees = [[rng.bytes(int(rng.integers(0, 300))) for _ in range(k)] for k in (1, 16, 5, 9, 2)]
+    leaf = HS.sha256_masked if algo == "sha256" else HR.ripemd160_masked
+    before = (leaf.launches, MK.merkle_level.launches)
+    got = MK.merkle_roots_forest(trees, algo, dev)
+    assert (leaf.launches, MK.merkle_level.launches) == (before[0] + 1, before[1] + 4)
+    assert got == [host.simple_hash_from_byte_slices(t, algo) for t in trees]
+    assert MK.merkle_root_device(trees[0], algo, dev) == host.simple_hash_from_byte_slices(trees[0], algo)
+
+
+@pytest.mark.parametrize("algo", ["sha256", "ripemd160"])
+def test_tree_hasher_on_the_card(dev, algo):
+    from tendermint_tpu_torch.merkle import simple as host
+    from tendermint_tpu_torch.services.hasher import TreeHasher
+
+    rng = np.random.default_rng(75)
+    items = [rng.bytes(int(rng.integers(1, 200))) for _ in range(300)]
+    h = TreeHasher(algo=algo, min_device_leaves=0)
+    assert h.device.type == "cuda"
+    assert h.root_from_items(items) == host.simple_hash_from_byte_slices(items, algo)
+    leaves = h.leaf_hashes(items)
+    assert leaves == [host.leaf_hash(x, algo) for x in items]
+    assert h.root_from_hashes(leaves) == host.simple_hash_from_hashes(leaves, algo)
+
+
+def test_hash_wrappers_reject_what_the_kernels_do_not_take(dev):
+    HS, HR, H5, MK = _hash_modules()
+    blocks = torch.zeros((4, 2, 16), dtype=torch.int32, device=dev)
+    n = torch.ones((4,), dtype=torch.int32, device=dev)
+    for fn in (HS.sha256_masked, HR.ripemd160_masked):
+        for bad in (
+            (blocks.long(), n),  # dtype
+            (blocks, n.long()),
+            (blocks[:, :, :15], n),  # shape
+            (blocks, n[:3]),
+            (blocks[:, :0], n),
+            (blocks.cpu(), n),  # device
+            (blocks, n.cpu()),
+            (blocks.transpose(0, 1).contiguous().transpose(0, 1), n),  # layout
+        ):
+            with pytest.raises(ValueError):
+                fn(*bad)
+    with pytest.raises(ValueError):
+        H5.sha512_masked(blocks, n)  # 16 words, not 32
+    flat = torch.zeros((1 + 4 * 2 * 16,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # contiguous, but 4 bytes off a 16-byte boundary
+        HS.sha256_masked(flat[1:].view(4, 2, 16), n)
+    nodes = torch.zeros((2, 4, 8), dtype=torch.int32, device=dev)
+    counts = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    for bad, algo in (
+        ((nodes.long(), counts, 0), "sha256"),  # dtype
+        ((nodes, counts.long(), 0), "sha256"),
+        ((nodes, counts, 0), "ripemd160"),  # width 8 is not RIPEMD-160's 5
+        ((nodes[:, :3], counts, 0), "sha256"),  # odd P
+        ((nodes, counts[:1], 0), "sha256"),
+        ((nodes.cpu(), counts, 0), "sha256"),  # device
+        ((nodes, counts, -1), "sha256"),  # level
+    ):
+        with pytest.raises(ValueError):
+            MK.merkle_level(*bad, algo)
+
+
+def test_hash_wrappers_launch_nothing_for_no_rows(dev):
+    HS, _HR, _H5, _MK = _hash_modules()
+    before = HS.sha256_masked.launches
+    got = HS.sha256_masked(torch.zeros((0, 1, 16), dtype=torch.int32, device=dev),
+                           torch.zeros((0,), dtype=torch.int32, device=dev))
+    assert got.shape == (0, 8) and HS.sha256_masked.launches == before

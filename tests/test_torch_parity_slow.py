@@ -1,8 +1,9 @@
 """The port's plain torch path against the JAX package's compiled
 kernels: `verify_tables_kernel` (impl="xla", and impl="fused", which
 runs the Pallas kernel interpreted on the CPU), the port's flat ladder
-against the jitted `verify_kernel`, and the Pallas ladder kernel
-interpreted (with stand-in point formulas).
+against the jitted `verify_kernel`, the Pallas ladder kernel
+interpreted (with stand-in point formulas), and the hash plane's jitted
+batch hashes and device trees against the port's plain versions.
 
 These compile XLA:CPU programs (and interpret Pallas) for many minutes,
 so they are marked `kernel` and `slow` and stay out of tier-1. Run with:
@@ -163,3 +164,52 @@ def test_ladder_pallas_interpret_matches_plain_ladder(monkeypatch, lanes):
     got = TL._ladder_plain(torch.from_numpy(gtab), torch.from_numpy(dig))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# -- the hash plane: jitted JAX hashes and trees against the plain versions
+
+
+def _hash_msgs(seed: int) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    return [rng.bytes(int(n)) for n in (0, 1, 55, 56, 64, 111, 112, 128, 250, 305, 700)]
+
+
+@pytest.mark.parametrize("name", ["sha256", "ripemd160", "sha512"])
+def test_batch_hash_words_match_jax(name):
+    from tendermint_tpu.ops import padding as JP
+    from tendermint_tpu.ops.ripemd160_kernel import ripemd160_batch_jax
+    from tendermint_tpu.ops.sha256_kernel import sha256_batch_jax
+    from tendermint_tpu.ops.sha512_kernel import sha512_batch_jax
+    from tendermint_tpu_torch.ops import ripemd160_kernel as TR
+    from tendermint_tpu_torch.ops import sha256_kernel as T256
+    from tendermint_tpu_torch.ops import sha512_kernel as T512
+
+    pad, jax_fn, port_fn = {
+        "sha256": (JP.pad_sha256, sha256_batch_jax, T256.sha256_batch),
+        "ripemd160": (JP.pad_ripemd160, ripemd160_batch_jax, TR.ripemd160_batch),
+        "sha512": (JP.pad_sha512, sha512_batch_jax, T512.sha512_batch),
+    }[name]
+    blocks, n = pad(_hash_msgs(81))
+    n[0] = 0  # a pad row
+    want = np.asarray(jax_fn(blocks, n))
+    got = T256.to_u32(port_fn(blocks, n, "cpu"))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("algo", ["sha256", "ripemd160"])
+def test_forest_and_tree_words_match_jax(algo):
+    from tendermint_tpu.ops import merkle_kernel as JM
+    from tendermint_tpu_torch.ops import merkle_kernel as TM
+    from tendermint_tpu_torch.ops.sha256_kernel import to_u32
+
+    rng = np.random.default_rng(82)
+    trees = [[rng.bytes(int(k)) for k in rng.integers(0, 200, n)] for n in (1, 2, 5, 8, 3)]
+    assert TM.merkle_roots_forest(trees, algo, "cpu") == JM.merkle_roots_forest(trees, algo)
+    items = trees[2] + trees[3]
+    assert TM.leaf_hashes_device(items, algo, "cpu") == JM.leaf_hashes_device(items, algo)
+    width = TM.WIDTHS[algo]
+    leaves = rng.integers(0, 2**32, (13, width), dtype=np.uint64).astype(np.uint32)
+    for count in (None, 9):
+        want = np.asarray(JM.merkle_root_from_leaf_words(leaves, count, algo))
+        got = to_u32(TM.merkle_root_from_leaf_words(leaves, count, algo, "cpu"))
+        np.testing.assert_array_equal(got, want)
