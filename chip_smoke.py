@@ -19,8 +19,8 @@ bytes):
    fused kernel (`madd_chain_fused`);
 4. flat batch: `verify_batch` on 4096 triples with distinct keys — the
    `ladder` kernel (decompression, [h](-A) and [S]B in one kernel);
-   every phase ends in the `finish_encode_compare` kernel (invert,
-   encode, compare with R);
+   every phase ends in the `finish_encode_compare` kernel (one batched
+   inversion a block, encode, compare with R);
 5. hash plane (bytes made from --seed): the data_hash of a block of
    65,536 txs of 250 bytes through `TreeHasher(device).root_from_items`
    for `sha256` and `ripemd160` (one leaf launch, 16 `merkle_level`
@@ -30,7 +30,8 @@ bytes):
    power of two among them); the state-sync gate, `leaf_hashes` over
    8,192 chunks of 64 KiB and `root_from_hashes` over the result, against
    hashlib and the host tree; `sha512_batch` over 4,096 messages of 305
-   bytes (R || A || M) against hashlib; then the stages of one call
+   bytes (R || A || M) against hashlib, and 16,384 more (the fast-sync
+   window's lane count) timed beside their bound; then the stages of one call
    (padding, copy in, leaf kernel, levels, copy back), the card's kernels
    in one data_hash call (torch.profiler) and the host-vs-card crossover
    at 256-65k leaves;
@@ -39,8 +40,9 @@ bytes):
    4096 lanes and at 3 commits of the fast-sync set), compared exactly
    on the canonical affine coordinates (x, y), T * Z == X * Y, the
    verdicts and, for the ladder, a_ok; the finish on all three chains'
-   outputs and on hand-made lanes (sign bit set and cleared, y >= p,
-   the identity, Z = 0); the hash kernels at the data_hash block (the two
+   outputs, on hand-made lanes (sign bit set and cleared, y >= p,
+   the identity) and on a batch of three blocks with a Z = 0 lane in
+   one (false on every lane); the hash kernels at the data_hash block (the two
    leaf passes, the first level of both trees), every level of the
    forest (both trees) and the SHA-512 batch,
    word for word (everything is an integer: tolerance 0); then
@@ -50,11 +52,14 @@ bytes):
    with CUDA events around a call (a hash kernel by torch.profiler, its
    device time a launch). Each kernel's bound is the larger of the limb
    products its function needs (100 a field multiply, 55 a squaring;
-   FE_OPS_PER_LANE, and for the finish a batched inversion's count, not
-   its kernel's per-lane chain) and the bytes it must move
+   FE_OPS_PER_LANE, and for the finish a batched inversion's count with
+   one chain a call, not its kernel's one a block) and the bytes it must move
    (madd_chain_entries: the distinct 32-byte table sectors its lanes
    touch); a hash kernel's bound counts the compressions its rows need
-   (INSTR_PER_COMPRESSION, `hash_ops`) and the blocks they read.
+   (INSTR_PER_COMPRESSION, `hash_ops`) and the blocks they read. Last,
+   the finish at each path's shape by CUDA events and by the profiler's
+   device time (`finish_device_ms`), and `sha512_masked` at 16,384
+   messages against hashlib and one message alone (`sha512_wide`).
 
 Every verify phase plants a forged signature, an absent vote, an S >= L, an
 invalid pubkey encoding and a wrong-length signature, and its verdicts
@@ -109,8 +114,8 @@ FE_OPS_PER_LANE = {
     "madd_chain_fused": (128 * 7 + 9, 0),  # two 64-step halves and one addition
     "ladder": tuple(map(sum, zip(*LADDER_FE_OPS.values()))),
     # encode(x/z, y/z) needs a batched (Montgomery) inversion's 3
-    # multiplies a lane, then x/z and y/z; the kernel's own per-lane
-    # chain (254 squarings, 11 multiplies) is more than the function needs
+    # multiplies a lane, then x/z and y/z; the kernel runs one chain a
+    # block of 32-256 lanes, more than the one a call counted below
     "finish_encode_compare": (3 + 2, 0),
 }
 # field (multiplies, squarings) once a call: the batched inversion's one
@@ -180,11 +185,16 @@ PROFILED = {
     "sha512_masked": "sha512_masked_kernel",
     "merkle_level": "merkle_level_kernel",
 }
+# torch.profiler sessions a measurement may take (`profiled`), and the
+# sessions of this run that recorded no device activity and were redone
+PROFILE_TRIES = 3
+LOST_SESSIONS = [0]
 # the hash phase's sizes: a block of TXS txs of TX_BYTES (tm-bench's
 # default tx size; BASELINE config 4's 65k-tx block), a fast-sync window
 # of FOREST_TREES blocks of 1 to FOREST_MAX_TXS txs, the state-sync gate
 # over CHUNKS chunks of CHUNK_BYTES (statesync/snapshot.py), SHA512_MSGS
-# messages of R || A || M, HASH_REPS warm calls
+# messages of R || A || M (and SHA512_WIDE_MSGS, the fast-sync window's
+# lanes, for one more timing), HASH_REPS warm calls
 TXS = 65536
 TX_BYTES = 250
 FOREST_TREES = 16
@@ -192,7 +202,19 @@ FOREST_MAX_TXS = 4096
 CHUNKS = 8192
 CHUNK_BYTES = 65536
 SHA512_MSGS = 4096
+SHA512_WIDE_MSGS = 16384
 HASH_REPS = 5
+# Two floors for one SHA-512 message, whose compressions are sequential,
+# so no width of batch runs one below them: the dependent chain of a
+# round through e (csrc/sha512.cuh `rounds`: the rotates of S1 (SHF),
+# their XOR (LOP3), then the 64-bit sums into e as a low IADD3 and a high
+# IADD3.X, twice), each at an assumed 4 cycles of ALU latency; and the
+# round warp's issue, 20 logic functions and shifts a round
+# (INSTR_PER_COMPRESSION), each two clocks of a warp on its scheduler's
+# 16-lane ALU pipe (INT32_LANES_PER_SM_CLOCK / 4).
+SHA512_ROUND_DEPTH = 6
+ALU_LATENCY_CYCLES = 4
+SHA512_ROUND_ALU = 20
 
 
 def sha256_folded(block: list) -> tuple[int, int]:
@@ -423,25 +445,38 @@ def compare_finish(name, point, r) -> int:
 
 def check_finish_edges(dev) -> None:
     """The finish on the hand-made lanes of `finish_edge_lanes` (known
-    verdicts, same as the plain version's), then on lanes with Z = 0: the
-    tree's verdict is true for an all-zero R there, the kernel's false."""
+    verdicts, same as the plain version's), then on `finish_mixed_lanes`:
+    70 lanes, three blocks of 32, a Z = 0 lane in the middle block with
+    an all-zero R (true in the JAX tree, which inverts every lane to 0)
+    and valid lanes in the others. The kernel must equal the plain
+    version lane for lane: false everywhere with the zero, the known
+    verdicts once that Z is 1."""
     import torch
 
-    from tendermint_tpu_torch.ops.ed25519_tables import _finish_encode_compare, finish_encode_compare
-    from tendermint_tpu_torch.testing import finish_edge_lanes
+    from tendermint_tpu_torch.ops.ed25519_tables import (
+        _finish_encode_compare,
+        finish_encode_compare,
+        finish_lanes_per_block,
+    )
+    from tendermint_tpu_torch.testing import MIXED_ZERO_LANE, finish_edge_lanes, finish_mixed_lanes
 
     x, y, z, r, want = (torch.from_numpy(a).to(dev) for a in finish_edge_lanes())
     got = finish_encode_compare(x, y, z, r)
     plain = _finish_encode_compare(x, y, z, r.to(torch.int32))
     if not (torch.equal(got, want) and torch.equal(plain, want)):
         raise AssertionError(f"finish on hand-made lanes: {got.tolist()} / plain {plain.tolist()}, want {want.tolist()}")
-    zero = torch.zeros((2, 20), dtype=torch.int32, device=dev)
-    y0 = zero.clone()
-    y0[1, 0] = 1
-    r0 = torch.zeros((2, 32), dtype=torch.uint8, device=dev)
-    r0[1, 0] = 1
-    if finish_encode_compare(zero, y0, zero, r0).any():
-        raise AssertionError("finish: a lane with Z = 0 came out true")
+    x, y, z, r, want = (torch.from_numpy(a).to(dev) for a in finish_mixed_lanes())
+    if finish_lanes_per_block(x.shape[0], torch.cuda.get_device_properties(dev).multi_processor_count) != 32:
+        raise AssertionError("finish: the mixed batch does not span three blocks")
+    got = finish_encode_compare(x, y, z, r)
+    plain = _finish_encode_compare(x, y, z, r.to(torch.int32))
+    if bool(got.any()) or not torch.equal(got, plain):
+        raise AssertionError(f"finish with a Z = 0 lane: {got.tolist()} / plain {plain.tolist()}, want all false")
+    z[MIXED_ZERO_LANE, 0] = 1
+    got = finish_encode_compare(x, y, z, r)
+    plain = _finish_encode_compare(x, y, z, r.to(torch.int32))
+    if not (torch.equal(got, want) and torch.equal(plain, want)):
+        raise AssertionError(f"finish on the mixed batch: {got.tolist()} / plain {plain.tolist()}, want {want.tolist()}")
 
 
 def entries_bytes(a_tables, s, h) -> tuple[int, int]:
@@ -551,26 +586,43 @@ def stage_times(dev, verifier, path: str, pubs, commits) -> dict:
     return out
 
 
-def device_time(fn) -> dict:
-    """One call of `fn` under torch.profiler: the summed time of every
-    kernel the card ran, how many ran, and the eight that took longest.
-    `device_s` is None when the profiler saw no device activity."""
+def profiled(fn):
+    """`key_averages()` of a torch.profiler session around `fn` (the card
+    synchronised before it and inside it). On the H100 a session now and
+    then ends having recorded no device activity at all, every launch in
+    it lost (`python3 -m tendermint_tpu_torch.profiler_drops` counts
+    them); such a session is run again, up to PROFILE_TRIES in all, and
+    counted in LOST_SESSIONS. Raises when every try was lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_type == DeviceType.CUDA for e in events):
+            return events
+        LOST_SESSIONS[0] += 1
+    raise AssertionError(f"torch.profiler recorded no device activity in {PROFILE_TRIES} sessions")
+
+
+def device_time(fn) -> dict:
+    """One call of `fn` under torch.profiler (`profiled`): the summed time
+    of every kernel the card ran, how many ran, and the eight that took
+    longest."""
+    from torch.autograd import DeviceType
+
     kernels = [
-        e for e in prof.key_averages()
+        e for e in profiled(fn)
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     ]
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {
-        "device_s": total_us / 1e6 if total_us else None,
+        "device_s": total_us / 1e6,
         "device_kernels": sum(e.count for e in kernels),
         "top": [
             {"name": e.key[:90], "count": e.count, "ms": e.self_device_time_total / 1e3}
@@ -601,16 +653,13 @@ def kernel_ms(fn, symbol: str, reps: int) -> tuple[float, int]:
     recorded: the mean over those (it has dropped one of five
     back-to-back 30 us launches); raises when it recorded fewer than
     `reps` - 1 or more than `reps`."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and symbol in e.key]
+
+    hits = [e for e in profiled(calls) if e.device_type == DeviceType.CUDA and symbol in e.key]
     seen = sum(e.count for e in hits)
     if not max(1, reps - 1) <= seen <= reps:
         raise AssertionError(f"the profiler saw {seen} launches of {symbol} in {reps} calls")
@@ -846,6 +895,36 @@ def hash_kernels(dev, txs, trees, msgs) -> list:
     return entries
 
 
+def sha512_wide(seed: int, dev, clock_hz: float, sms: int, reps: int) -> dict:
+    """`sha512_masked` at SHA512_WIDE_MSGS messages of R || A || M: the
+    digests against hashlib, the profiler's device time a launch and the
+    bound, as for the kernels line; then one message alone, and the two
+    floors of one message (SHA512_ROUND_DEPTH, SHA512_ROUND_ALU)."""
+    import hashlib
+
+    from tendermint_tpu_torch.ops.padding import digests_to_bytes_be, pad_sha512
+    from tendermint_tpu_torch.ops.sha256_kernel import to_u32, to_words
+    from tendermint_tpu_torch.ops.sha512_kernel import sha512_masked
+
+    msgs = byte_items(np.random.default_rng(seed + 6), np.full(SHA512_WIDE_MSGS, 64 + MSG_LEN))
+    blocks, n_blocks = pad_sha512(msgs)
+    b, nb = to_words(blocks, dev), to_words(n_blocks, dev)
+    if digests_to_bytes_be(to_u32(sha512_masked(b, nb))) != [hashlib.sha512(m).digest() for m in msgs]:
+        raise AssertionError(f"sha512_masked at {SHA512_WIDE_MSGS} messages differs from hashlib")
+    ms, seen = kernel_ms(lambda: sha512_masked(b, nb), PROFILED["sha512_masked"], reps)
+    comps = int(n_blocks.sum())
+    n = len(msgs)
+    bms, by = bound_ms(hash_ops(INSTR_PER_COMPRESSION["sha512"], comps), comps * 128 + 4 * n + 64 * n, clock_hz, sms)
+    # one message alone: its chain of compressions, the least any batch takes
+    one_ms, _seen = kernel_ms(lambda: sha512_masked(b[:1], nb[:1]), PROFILED["sha512_masked"], reps)
+    rounds = (comps // n) * 80
+    warp_clocks = 32 / (INT32_LANES_PER_SM_CLOCK / 4)
+    return {"msgs": n, "ms": ms, "profiled_launches": seen, "bound_ms": bms, "bound_by": by,
+            "one_msg_ms": one_ms,
+            "chain_floor_ms": 1e3 * rounds * SHA512_ROUND_DEPTH * ALU_LATENCY_CYCLES / clock_hz,
+            "issue_floor_ms": 1e3 * rounds * SHA512_ROUND_ALU * warp_clocks / clock_hz}
+
+
 def hash_profile(dev, sync, rep, txs, chunks) -> None:
     """After the main path: stage breakdowns, the card's kernels in one
     data_hash call (torch.profiler) and the host-vs-card crossover."""
@@ -862,7 +941,7 @@ def hash_profile(dev, sync, rep, txs, chunks) -> None:
         d = device_time(lambda: hasher.root_from_items(txs))
         wall = rep["data_hash"][algo]["warm_s_median"]
         d["wall_s"] = wall
-        d["busy_share"] = d["device_s"] / wall if d["device_s"] is not None else None
+        d["busy_share"] = d["device_s"] / wall
         rep["device"][algo] = d
         log({"phase": "hash", "part": "device", "algo": algo, **{k: v for k, v in d.items() if k != "top"}})
     cross = []
@@ -1137,7 +1216,7 @@ def run(args) -> dict:
     for name, (fn, wall) in calls.items():
         d = device_time(fn)
         d["wall_s"] = wall
-        d["busy_share"] = d["device_s"] / wall if d["device_s"] is not None else None
+        d["busy_share"] = d["device_s"] / wall
         report["device"][name] = d
         log({"phase": "device", "call": name, **{k: v for k, v in d.items() if k != "top"}})
     # the flat call's torch prologue before the ladder kernel: the digit
@@ -1181,13 +1260,24 @@ def run(args) -> dict:
         })
         log({"phase": 1, **rows[-1]})
     report["kernels"] = rows
-    # the finish at each path's shape, on its chain's output as it lies
-    report["finish_ms"] = {
-        "consensus": cuda_ms(lambda: tab.finish_encode_compare(*e_pt[:3], r2u), args.reps),
-        "fast_sync": next(row["ms"] for row in rows if row["name"] == "finish_encode_compare"),
-        "flat": cuda_ms(lambda: tab.finish_encode_compare(*k_pt[:3], rr), args.reps),
+    # the finish at each path's shape, on its chain's output as it lies:
+    # CUDA events around a call (the wrapper's host work before the launch
+    # included, as in the kernels line) and the kernel's device time alone
+    finish_calls = {
+        "consensus": lambda: tab.finish_encode_compare(*e_pt[:3], r2u),
+        "fast_sync": lambda: tab.finish_encode_compare(fx, fy, fz, r3u),
+        "flat": lambda: tab.finish_encode_compare(*k_pt[:3], rr),
     }
+    report["finish_ms"] = {name: cuda_ms(fn, args.reps) for name, fn in finish_calls.items()}
     log({"phase": "finish_ms", **report["finish_ms"]})
+    report["finish_device_ms"] = {
+        name: kernel_ms(fn, "finish_kernel", args.reps)[0] for name, fn in finish_calls.items()
+    }
+    log({"phase": "finish_device_ms", **report["finish_device_ms"]})
+    report["sha512_wide"] = sha512_wide(args.seed, dev, clock_hz, sms, args.reps)
+    log({"phase": "sha512_wide", **report["sha512_wide"]})
+    report["profiler_lost_sessions"] = LOST_SESSIONS[0]
+    log({"phase": "profiler", "lost_sessions": LOST_SESSIONS[0]})
     return report
 
 

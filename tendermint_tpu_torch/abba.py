@@ -35,9 +35,9 @@ def summary(report: dict) -> dict:
     regs = {}
     name = None
     for ln in env.get("ptxas", []):
-        m = re.search(r"(ladder_kernel|madd_chain_fused_kernel|madd_chain_entries_kernel|finish_kernel)", ln)
-        if m:
-            name = m.group(1)
+        if "Compiling entry" in ln:
+            m = re.search(r"(ladder_kernel|madd_chain_fused_kernel|madd_chain_entries_kernel|finish_kernel|sha512_masked_kernel)", ln)
+            name = m.group(1) if m else None
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
             regs.setdefault(name, {})["spill_stores"] = int(m.group(1))

@@ -2,7 +2,8 @@
 // limbs of radix 2^26, held in int32, for every kernel of the port:
 // madd_chain.cu (madd_chain_entries: ten threads a lane, one limb each;
 // madd_chain_fused: one lane a thread), ladder.cu (ten threads a lane)
-// and finish.cu (one lane a thread).
+// and finish.cu (one lane a thread for its product tree and lane work,
+// ten threads for the one inversion of a block, `ginvert`).
 //
 // Boundary. The torch code and the comb tables use 20 limbs of radix
 // 2^13. 10 x 26 = 20 x 13 = 260 bits, so limb i here is exactly
@@ -300,20 +301,48 @@ __device__ __forceinline__ void gstore(int32_t* out, int coord, int32_t mine, co
   }
 }
 
+// The product a[i] * b[(k - i) mod 10] goes to lo (i <= k) or hi: the
+// factor a[i] is masked, not the sum, and even and odd i sum apart, so
+// the four sums are independent chains of five multiply-adds (the same
+// integers as one chain of ten with a select after each: the chain of
+// `ginvert` is latency-bound on this step).
 __device__ __forceinline__ int32_t gmul(int32_t a, int32_t b, const Group& g) {
-  int64_t lo = 0, hi = 0;
+  int64_t lo[2] = {0, 0}, hi[2] = {0, 0};
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int32_t ai = __shfl_sync(FULL, a, g.base + i);
     const int32_t bj = __shfl_sync(FULL, b, g.base + (g.k - i + NL) % NL);
-    const int64_t p = static_cast<int64_t>(ai) * bj;
-    if (i <= g.k) lo += p;
-    else hi += p;
+    const int32_t a_lo = i <= g.k ? ai : 0;
+    lo[i & 1] += static_cast<int64_t>(a_lo) * bj;
+    hi[i & 1] += static_cast<int64_t>(ai - a_lo) * bj;
   }
-  const int64_t t = round1_t(lo, hi);
-  const int64_t s = round1_s(t, hi);
+  const int64_t t = round1_t(lo[0] + lo[1], hi[0] + hi[1]);
+  const int64_t s = round1_s(t, hi[0] + hi[1]);
   const int64_t u = (t & MASK) + take(from_below(s, g), g.k);
   return static_cast<int32_t>((u & MASK) + take(from_below(u >> RADIX, g), g.k));
+}
+
+__device__ __forceinline__ int32_t gsq_n(int32_t x, int n, const Group& g) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) x = gmul(x, x, g);
+  return x;
+}
+
+// z^(p - 2), the addition chain of the torch `fe_invert` (254
+// squarings, 11 multiplies): 1/z, and 0 for z = 0
+__device__ inline int32_t ginvert(int32_t z, const Group& g) {
+  const int32_t z2 = gmul(z, z, g);
+  const int32_t z9 = gmul(gsq_n(z2, 2, g), z, g);
+  const int32_t z11 = gmul(z9, z2, g);
+  const int32_t z5 = gmul(gmul(z11, z11, g), z9, g);
+  const int32_t z10 = gmul(gsq_n(z5, 5, g), z5, g);
+  const int32_t z20 = gmul(gsq_n(z10, 10, g), z10, g);
+  const int32_t z40 = gmul(gsq_n(z20, 20, g), z20, g);
+  const int32_t z50 = gmul(gsq_n(z40, 10, g), z10, g);
+  const int32_t z100 = gmul(gsq_n(z50, 50, g), z50, g);
+  const int32_t z200 = gmul(gsq_n(z100, 100, g), z100, g);
+  const int32_t z250 = gmul(gsq_n(z200, 50, g), z50, g);
+  return gmul(gsq_n(z250, 5, g), z11, g);
 }
 
 struct GPoint {

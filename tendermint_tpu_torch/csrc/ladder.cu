@@ -52,12 +52,6 @@ __constant__ int32_t kD[NL] = {56195235, 47411844, 25868126, 20251911, 28682,
 __constant__ int32_t kSqrtM1[NL] = {34513072, 59165138, 38243406, 1750207, 53429016,
                                     58652137, 13633939, 58469549, 8409025,  712905};
 
-__device__ __forceinline__ int32_t gsq_n(int32_t x, int n, const Group& g) {
-#pragma unroll 1
-  for (int i = 0; i < n; ++i) x = gmul(x, x, g);
-  return x;
-}
-
 // a^((p - 5) / 8): the addition chain of the torch `fe_pow_p58`
 __device__ int32_t gpow_p58(int32_t a, const Group& g) {
   const int32_t z2 = gmul(a, a, g);

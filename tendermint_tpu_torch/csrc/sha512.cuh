@@ -1,4 +1,6 @@
-// SHA-512 (FIPS 180-4) for one message a thread, in native 64-bit words.
+// SHA-512 (FIPS 180-4) in native 64-bit words, as two functions that
+// run on two threads of one message: `schedule` expands a block into
+// W[t] + K[t] (t = 0..79) and `rounds` runs the 80 rounds on those.
 //
 // Replaces the JAX package's `_compress512`
 // (tendermint_tpu/ops/sha512_kernel.py), which emulates every 64-bit
@@ -12,7 +14,9 @@
 // card can issue it: a 64-bit rotate or shift is two funnel shifts, a
 // 64-bit logic function of three words two LOP3, a sum of three 64-bit
 // words two IADD3 (the low halves' carries into the high halves); 64
-// schedule steps of 20, 80 rounds of 28, 8 final additions of 2 = 3,536.
+// schedule steps of 20, 80 rounds of 28 (counting K's addition, which
+// `schedule` makes, and the sums as `rounds` groups them), 8 final
+// additions of 2 = 3,536.
 #pragma once
 
 #include <cstdint>
@@ -55,12 +59,12 @@ __device__ __forceinline__ void init(uint64_t s[8]) {
 
 __device__ __forceinline__ uint64_t rotr(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
 
-// s <- compress(s, block): block is 16 big-endian 64-bit words
-__device__ __forceinline__ void compress(uint64_t s[8], const uint64_t block[16]) {
+// wk[t * stride] = W[t] + K[t], t = 0..79, for one block of 16
+// big-endian 64-bit words
+__device__ __forceinline__ void schedule(uint64_t* wk, int stride, const uint64_t block[16]) {
   uint64_t w[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) w[i] = block[i];
-  uint64_t a = s[0], b = s[1], c = s[2], d = s[3], e = s[4], f = s[5], g = s[6], h = s[7];
 #pragma unroll
   for (int t = 0; t < 80; ++t) {
     uint64_t wt = w[t & 15];
@@ -72,20 +76,33 @@ __device__ __forceinline__ void compress(uint64_t s[8], const uint64_t block[16]
       wt = wt + s0 + w[(t - 7) & 15] + s1;
       w[t & 15] = wt;
     }
+    wk[t * stride] = wt + kK[t];
+  }
+}
+
+// s <- s + the 80 rounds on s, given W[t] + K[t] at wk[t * stride].
+// A round's only dependence on the last one's e is S1(e) and ch(e, f, g):
+// h + W + K and d + h + W + K are formed from values known rounds ahead,
+// so e's path is one rotate, one XOR and one three-term sum a round.
+__device__ __forceinline__ void rounds(uint64_t s[8], const uint64_t* wk, int stride) {
+  uint64_t a = s[0], b = s[1], c = s[2], d = s[3], e = s[4], f = s[5], g = s[6], h = s[7];
+#pragma unroll
+  for (int t = 0; t < 80; ++t) {
+    const uint64_t hw = h + wk[t * stride];
+    const uint64_t dhw = d + hw;
     const uint64_t S1 = rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41);
     const uint64_t ch = (e & f) ^ (~e & g);
-    const uint64_t t1 = h + S1 + ch + kK[t] + wt;
     const uint64_t S0 = rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39);
     const uint64_t maj = (a & b) ^ (a & c) ^ (b & c);
-    const uint64_t t2 = S0 + maj;
+    const uint64_t t1 = hw + S1 + ch;
     h = g;
     g = f;
     f = e;
-    e = d + t1;
+    e = dhw + S1 + ch;  // d + t1
     d = c;
     c = b;
     b = a;
-    a = t1 + t2;
+    a = t1 + S0 + maj;
   }
   s[0] += a;
   s[1] += b;

@@ -36,7 +36,9 @@ torch version of the same function for CPU tensors.
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -590,7 +592,9 @@ def verify_tables_kernel(a_tables, s_bytes, h_bytes, r_bytes, impl="auto"):
 
 def _finish_encode_compare(x, y, z, r):
     """Plain version of the `finish_encode_compare` kernel: affine-normalize
-    via one tree inversion, encode y, compare to R (int32 bytes)."""
+    via one tree inversion, encode y, compare to R (int32 bytes). A batch
+    with a Z = 0 lane is false on every lane (the tree inverts every lane
+    to 0 there, and would pass a lane whose R is 32 zero bytes)."""
     zinv = fe_batch_invert(fe_carry(z))
     x_aff = fe_canon(fe_mul(x, zinv))
     y_bytes = fe_to_bytes(fe_mul(y, zinv))
@@ -598,20 +602,58 @@ def _finish_encode_compare(x, y, z, r):
     sign = (r[..., 31] >> 7) & 1
     r_clean = r.clone()
     r_clean[..., 31] &= 0x7F
-    return torch.all(y_bytes == r_clean, dim=-1) & (parity == sign)
+    ok = torch.all(y_bytes == r_clean, dim=-1) & (parity == sign)
+    return ok & ~fe_is_zero(z).any()
+
+
+# lanes (and threads) of a block of the finish kernel: a power of two
+FINISH_MIN_LANES = 32
+FINISH_MAX_LANES = 256
+
+
+def finish_lanes_per_block(bsz: int, sms: int) -> int:
+    """Lanes a block of the `finish_encode_compare` kernel takes for a
+    call of `bsz` lanes on a card of `sms` SMs: the largest power of two
+    in [32, 256] that still gives every SM a block (each block runs one
+    inversion chain, so the chains run side by side), else 32."""
+    lanes = FINISH_MAX_LANES
+    while lanes > FINISH_MIN_LANES and -(-bsz // lanes) < sms:
+        lanes //= 2
+    return lanes
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# one 64-bit word of device memory a (device, stream) for the finish
+# kernel: its blocks count themselves and their "saw a zero Z" bits
+# there, and its last block zeroes it again, so the calls of one stream
+# (in order) reuse it and calls on two streams never share one
+_FINISH_SCRATCH: dict = {}
+_FINISH_SCRATCH_LOCK = threading.Lock()
+
+
+def _finish_scratch(dev, stream: int) -> torch.Tensor:
+    with _FINISH_SCRATCH_LOCK:
+        word = _FINISH_SCRATCH.get((dev.index, stream))
+        if word is None:
+            word = _FINISH_SCRATCH[(dev.index, stream)] = torch.zeros((1,), dtype=torch.int64, device=dev)
+        return word
 
 
 def finish_encode_compare(x, y, z, r):
     """x, y, z (B, 20) int32 extended coordinates in the chains' boundary
     form, r (B, 32) uint8 or int32 bytes of R -> (B,) bool:
     encode(x/z, y/z) == r. CUDA tensors launch the `finish_encode_compare`
-    kernel (one inversion a lane); CPU tensors run `_finish_encode_compare`.
-    A lane with z = 0 is false on either device. x, y, z may be contiguous or
-    the transposed rows of a chain's (4, 20, B) output, alike."""
+    kernel (one batched inversion a block of `finish_lanes_per_block`
+    lanes); CPU tensors run `_finish_encode_compare`. A call with a lane
+    whose z is 0 is false on every lane, on either device. x, y, z may be
+    contiguous or the transposed rows of a chain's (4, 20, B) output,
+    alike."""
     if z.device.type == "cpu":
-        # the tree inverts every lane to 0 when one Z is 0; the z != 0
-        # test keeps such lanes false here as on the card
-        return _finish_encode_compare(x, y, z, r.to(torch.int32)) & ~fe_is_zero(z)
+        return _finish_encode_compare(x, y, z, r.to(torch.int32))
     bsz = z.shape[0]
     for name, t in (("x", x), ("y", y), ("z", z)):
         if t.device != z.device:
@@ -634,9 +676,12 @@ def finish_encode_compare(x, y, z, r):
     lane_stride, limb_stride = z.stride()
     lib = kernel_lib()
     with torch.cuda.device(dev):
+        stream = stream_ptr(dev)
         rc = lib.finish_encode_compare(
             x.data_ptr(), y.data_ptr(), z.data_ptr(), lane_stride, limb_stride,
-            r.data_ptr(), r.element_size(), ok.data_ptr(), bsz, stream_ptr(dev),
+            r.data_ptr(), r.element_size(), ok.data_ptr(), bsz,
+            finish_lanes_per_block(bsz, _sm_count(dev.index)),
+            _finish_scratch(dev, stream).data_ptr(), stream,
         )
     check(rc, "finish_encode_compare")
     finish_encode_compare.launches += 1

@@ -4,8 +4,9 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from tendermint_tpu_torch.ops.ed25519_kernel import P, SQRT_M1, _int_to_limbs
+from tendermint_tpu_torch.ops.ed25519_kernel import P, SQRT_M1, _int_to_limbs, fe_canon, fe_mul, fe_to_bytes
 from tendermint_tpu_torch.ops.ed25519_tables import _B_EXT, host_affine, host_scalar_mul
 
 
@@ -45,3 +46,44 @@ def finish_edge_lanes():
         rs.append(np.frombuffer(r.to_bytes(32, "little"), dtype=np.uint8))
         want.append(ok)
     return np.stack(xs), np.stack(ys), np.stack(zs), np.stack(rs), np.array(want)
+
+
+# the mixed batch's size and the lane whose Z is 0: three blocks of 32
+# lanes, the zero in the middle one
+MIXED_LANES = 70
+MIXED_ZERO_LANE = 40
+
+
+def finish_mixed_lanes():
+    """A batch of the finish with one Z = 0 lane, from a fixed seed:
+    the hand-made lanes of `finish_edge_lanes` first, then random
+    projective points (a Z, b Z, Z) with their encodings (three of them
+    forged), and lane MIXED_ZERO_LANE with X = Y = Z = 0 and R = 0.
+    Returns x, y, z (MIXED_LANES, 20) int32, r (MIXED_LANES, 32) uint8
+    and the verdict each lane gets once that Z is made 1 (true at that
+    lane: (0, 0) encodes to 32 zero bytes); with the Z = 0 lane in the
+    call every verdict is false."""
+    ex, ey, ez, er, edge = finish_edge_lanes()
+    rng = np.random.default_rng(23)
+    m, n = len(edge), MIXED_LANES - len(edge)
+
+    def rand_fe():
+        vals = [int.from_bytes(rng.bytes(32), "little") % (P - 1) + 1 for _ in range(n)]
+        return torch.from_numpy(np.stack([_int_to_limbs(v) for v in vals]))
+
+    a, b, z = rand_fe(), rand_fe(), rand_fe()
+    r = fe_to_bytes(b)
+    r[:, 31] |= (fe_canon(a)[:, 0] & 1) << 7
+    xs = np.concatenate([ex, fe_mul(a, z).numpy()])
+    ys = np.concatenate([ey, fe_mul(b, z).numpy()])
+    zs = np.concatenate([ez, z.numpy()])
+    rs = np.concatenate([er, r.numpy().astype(np.uint8)])
+    want = np.concatenate([edge, np.ones(n, dtype=bool)])
+    for lane in (m + 3, 50, 69):
+        rs[lane, 7] ^= 0x10
+        want[lane] = False
+    k = MIXED_ZERO_LANE
+    xs[k] = ys[k] = zs[k] = 0
+    rs[k] = 0
+    want[k] = True
+    return xs, ys, zs, rs, want

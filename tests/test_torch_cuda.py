@@ -22,7 +22,7 @@ from tendermint_tpu_torch.crypto import ed25519_ref
 from tendermint_tpu_torch.ops import ed25519_kernel as T
 from tendermint_tpu_torch.ops import ed25519_ladder as TL
 from tendermint_tpu_torch.ops import ed25519_tables as TT
-from tendermint_tpu_torch.testing import finish_edge_lanes
+from tendermint_tpu_torch.testing import MIXED_ZERO_LANE, finish_edge_lanes, finish_mixed_lanes
 
 pytestmark = pytest.mark.cuda
 
@@ -176,7 +176,7 @@ def _encodings(point):
     return r.to(torch.uint8)
 
 
-@pytest.mark.parametrize("lanes", [1, 3, 1000, 10000])
+@pytest.mark.parametrize("lanes", [1, 3, 1000, 4096, 10000, 16000, 40000])
 def test_finish_encode_compare_matches_plain(dev, lanes):
     """Verdicts bit for bit against the tree-inversion plain version, on
     ladder outputs with every third R forged and the hand-made lanes in
@@ -203,16 +203,28 @@ def test_finish_encode_compare_matches_plain(dev, lanes):
 
 
 def test_finish_encode_compare_is_false_where_z_is_zero(dev):
-    """The tree makes every inverse 0 when a Z is 0, so its verdict is
-    true for an all-zero R; the kernel's never is."""
+    """A call with a Z = 0 lane is false on every lane, the kernel's
+    verdicts equal to the plain version's: two lanes, and the mixed batch
+    of `finish_mixed_lanes` (three blocks of 32, the zero in the middle
+    one, an all-zero R there), which without the zero keeps its known
+    verdicts."""
     zero = torch.zeros((2, 20), dtype=torch.int32, device=dev)
     y = zero.clone()
     y[1, 0] = 1
     r = torch.zeros((2, 32), dtype=torch.uint8, device=dev)
     r[1, 0] = 1
-    assert TT._finish_encode_compare(zero, y, zero, r.int()).cpu().tolist() == [True, False]
+    assert TT._finish_encode_compare(zero, y, zero, r.int()).cpu().tolist() == [False, False]
     assert TT.finish_encode_compare(zero, y, zero, r).cpu().tolist() == [False, False]
     assert TT.finish_encode_compare(zero.cpu(), y.cpu(), zero.cpu(), r.cpu()).tolist() == [False, False]
+    x, y, z, r, want = (torch.from_numpy(a).to(dev) for a in finish_mixed_lanes())
+    assert TT.finish_lanes_per_block(x.shape[0], torch.cuda.get_device_properties(dev).multi_processor_count) == 32
+    for _ in range(3):  # the scratch word is zero again after every call
+        got = TT.finish_encode_compare(x, y, z, r)
+        assert torch.equal(got, TT._finish_encode_compare(x, y, z, r.int()))
+        assert not bool(got.any())
+    z[MIXED_ZERO_LANE, 0] = 1
+    got = TT.finish_encode_compare(x, y, z, r)
+    assert torch.equal(got, want) and torch.equal(got, TT._finish_encode_compare(x, y, z, r.int()))
 
 
 def test_finish_encode_compare_launches_nothing_for_no_lanes(dev):
@@ -327,7 +339,7 @@ def _random_blocks(bsz, mb, words, seed, dev):
 
 
 @pytest.mark.parametrize("name", ["sha256_masked", "ripemd160_masked", "sha512_masked"])
-@pytest.mark.parametrize("bsz,mb", [(1, 1), (1, 3), (77, 4), (1025, 2)])
+@pytest.mark.parametrize("bsz,mb", [(1, 1), (1, 3), (77, 4), (1025, 2), (4096, 3), (4500, 2)])
 def test_masked_hash_matches_plain(dev, name, bsz, mb):
     kernel, plain, words = _masked(name)
     blocks, n = _random_blocks(bsz, mb, words, 71 + bsz, dev)

@@ -62,15 +62,17 @@ def columns(a, b):
 
 def group_columns(a, b):
     """Thread k of a group: ten products a[i] * b[(k - i) mod 10],
-    i <= k into lo, i > k into hi."""
+    i <= k into lo, i > k into hi, by masking the factor a[i]; even and
+    odd i in separate sums (each inside int64), added at the end."""
     lo, hi = [0] * NL, [0] * NL
     for k in range(NL):
+        parts = [[0, 0], [0, 0]]  # [lo, hi][i & 1]
         for i in range(NL):
-            p = a[i] * b[(k - i) % NL]
-            if i <= k:
-                lo[k] += p
-            else:
-                hi[k] += p
+            a_lo = a[i] if i <= k else 0
+            parts[0][i & 1] += a_lo * b[(k - i) % NL]
+            parts[1][i & 1] += (a[i] - a_lo) * b[(k - i) % NL]
+            assert all(fits64(x) for row in parts for x in row)
+        lo[k], hi[k] = sum(parts[0]), sum(parts[1])
     return lo, hi
 
 
@@ -291,7 +293,7 @@ def test_canon_of_loose_products(x, y):
     assert value(got) == value(a) * value(b) % P
 
 
-# -- the finish (`csrc/finish.cu`): load, invert, canonical form, encode -------
+# -- the finish (`csrc/finish.cu`): load, block tree, invert, canonical form, encode
 
 
 def load_fe(l13):
@@ -306,24 +308,25 @@ def load_fe(l13):
 
 def sq_n(x, n, check):
     for _ in range(n):
-        x = fe_mul(x, x, check)
+        x = gmul(x, x, check)
     return x
 
 
 def invert(z, check):
-    """z^(p - 2) with the kernel's chain: 254 squarings, 11 multiplies."""
-    z2 = fe_mul(z, z, check)
-    z9 = fe_mul(sq_n(z2, 2, check), z, check)
-    z11 = fe_mul(z9, z2, check)
-    z5 = fe_mul(fe_mul(z11, z11, check), z9, check)
-    z10 = fe_mul(sq_n(z5, 5, check), z5, check)
-    z20 = fe_mul(sq_n(z10, 10, check), z10, check)
-    z40 = fe_mul(sq_n(z20, 20, check), z20, check)
-    z50 = fe_mul(sq_n(z40, 10, check), z10, check)
-    z100 = fe_mul(sq_n(z50, 50, check), z50, check)
-    z200 = fe_mul(sq_n(z100, 100, check), z100, check)
-    z250 = fe_mul(sq_n(z200, 50, check), z50, check)
-    return fe_mul(sq_n(z250, 5, check), z11, check)
+    """z^(p - 2) with the chain of `ginvert` (group form): 254 squarings,
+    11 multiplies."""
+    z2 = gmul(z, z, check)
+    z9 = gmul(sq_n(z2, 2, check), z, check)
+    z11 = gmul(z9, z2, check)
+    z5 = gmul(gmul(z11, z11, check), z9, check)
+    z10 = gmul(sq_n(z5, 5, check), z5, check)
+    z20 = gmul(sq_n(z10, 10, check), z10, check)
+    z40 = gmul(sq_n(z20, 20, check), z20, check)
+    z50 = gmul(sq_n(z40, 10, check), z10, check)
+    z100 = gmul(sq_n(z50, 50, check), z50, check)
+    z200 = gmul(sq_n(z100, 100, check), z100, check)
+    z250 = gmul(sq_n(z200, 50, check), z50, check)
+    return gmul(sq_n(z250, 5, check), z11, check)
 
 
 def byte_of(v, j):
@@ -336,18 +339,39 @@ def byte_of(v, j):
     return b & 0xFF
 
 
-def finish(x13, y13, z13, r):
-    """The kernel's verdict for one lane: r a 32-byte string."""
+def finish(lanes, per_block=32):
+    """The kernel's verdicts for one call: `lanes` a list of (x13, y13,
+    z13, r), r a 32-byte string. Per block of `per_block` lanes: the
+    loaded Z values (a Z of 0 mod p, and the lanes past the last, as 1)
+    multiplied up a heap (node i = node 2i * node 2i + 1), the root
+    inverted once, 1/child = 1/parent * sibling back down, then each
+    lane's x, y times its 1/Z, canonical form, encoding and comparison;
+    every lane false when a Z was 0. Every intermediate is held in
+    int64."""
     inter = []
-    z = load_fe(z13)
-    zinv = invert(z, inter)
-    xc = canon(fe_mul(load_fe(x13), zinv, inter))
-    yc = canon(fe_mul(load_fe(y13), zinv, inter))
+    one = [1] + [0] * (NL - 1)
+    verdicts, saw_zero = [], False
+    for b0 in range(0, len(lanes), per_block):
+        block = lanes[b0 : b0 + per_block]
+        prod = [None] * per_block + [load_fe(z13) for _x, _y, z13, _r in block]
+        for i in range(per_block, per_block + len(block)):
+            if not any(canon(prod[i])):
+                saw_zero = True
+                prod[i] = one
+        prod += [one] * (2 * per_block - len(prod))
+        for i in range(per_block - 1, 0, -1):
+            prod[i] = fe_mul(prod[2 * i], prod[2 * i + 1], inter)
+        inv = [None, invert(prod[1], inter)]
+        for c in range(2, 2 * per_block):
+            inv.append(fe_mul(inv[c >> 1], prod[c ^ 1], inter))
+        for t, (x13, y13, _z13, r) in enumerate(block):
+            zinv = inv[per_block + t]
+            xc = canon(fe_mul(load_fe(x13), zinv, inter))
+            yc = canon(fe_mul(load_fe(y13), zinv, inter))
+            same = all(r[j] == byte_of(yc, j) for j in range(31))
+            verdicts.append(same and (r[31] & 0x7F) == byte_of(yc, 31) and (r[31] >> 7) & 1 == xc[0] & 1)
     assert all(fits64(x) for x in inter)
-    same = any(canon(z))
-    for j in range(31):
-        same = same and r[j] == byte_of(yc, j)
-    return same and (r[31] & 0x7F) == byte_of(yc, 31) and (r[31] >> 7) & 1 == xc[0] & 1
+    return [v and not saw_zero for v in verdicts]
 
 
 def limbs13(x):
@@ -416,14 +440,19 @@ def test_boundary_extremes_load(ends):
 
 def test_finish_verdicts_on_hand_made_lanes():
     """The model's verdicts on `finish_edge_lanes` (sign bit set and
-    cleared, flipped, y >= p, the identity, the order-4 point) and on
-    Z = 0, which is false whatever R is."""
+    cleared, flipped, y >= p, the identity, the order-4 point), alone and
+    spread over three blocks of 32 among lanes of those points again;
+    and with a Z = 0 lane in the call, false on every lane whatever R is."""
     from tendermint_tpu_torch.testing import finish_edge_lanes
 
     x, y, z, r, want = finish_edge_lanes()
-    rows = [[list(map(int, c[i])) for c in (x, y, z)] for i in range(len(want))]
-    got = [finish(*row, bytes(r[i])) for i, row in enumerate(rows)]
-    assert got == list(want)
+    rows = [([int(v) for v in x[i]], [int(v) for v in y[i]], [int(v) for v in z[i]], bytes(r[i])) for i in range(len(want))]
+    assert finish(rows) == list(want)
+    spread = (rows * 8)[:70]
+    assert finish(spread) == (list(want) * 8)[:70]
     zero = [0] * 20
-    assert not finish(zero, zero, zero, bytes(32))
-    assert not finish(zero, limbs13(1), zero, (1).to_bytes(32, "little"))
+    assert finish([(zero, zero, zero, bytes(32))]) == [False]
+    assert finish([(zero, limbs13(1), zero, (1).to_bytes(32, "little"))]) == [False]
+    with_zero = list(spread)
+    with_zero[40] = (zero, zero, zero, bytes(32))  # R = 0: the JAX tree's verdict there is true
+    assert finish(with_zero) == [False] * 70

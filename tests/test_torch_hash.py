@@ -244,13 +244,14 @@ int main() {
       ripemd160::init(s);
       for (int j = 0; j < n; ++j) ripemd160::compress(s, row + j * 16);
       fwrite(s, 4, 5, stdout);
-    } else if (algo == 2) {
-      uint64_t s[8];
+    } else if (algo == 2) {  // the kernel's split: schedule into a strided ring, then the rounds
+      uint64_t s[8], ring[80 * 3];
       sha512::init(s);
       for (int j = 0; j < n; ++j) {
         uint64_t x[16];
         for (int q = 0; q < 16; ++q) x[q] = ((uint64_t)row[j * 32 + 2 * q] << 32) | row[j * 32 + 2 * q + 1];
-        sha512::compress(s, x);
+        sha512::schedule(ring + 1, 3, x);
+        sha512::rounds(s, ring + 1, 3);
       }
       for (int i = 0; i < 8; ++i) {
         const uint32_t hl[2] = {(uint32_t)(s[i] >> 32), (uint32_t)s[i]};

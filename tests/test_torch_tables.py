@@ -294,19 +294,21 @@ def test_finish_encode_compare_matches_jax(tables, valset):
 
 
 def test_finish_encode_compare_is_false_where_z_is_zero():
-    """The tree inverts every lane to 0 when one Z is 0, so the plain
-    version's verdict is true for an all-zero R there; the wrapper's CPU
-    path, like the kernel, makes a Z = 0 lane false and leaves the other
-    lanes of the batch as they were."""
+    """The JAX tree inverts every lane to 0 when one Z is 0, so its
+    verdict is true for an all-zero R there; the plain version and the
+    wrapper's CPU path, like the kernel, make a batch with a Z = 0 lane
+    false on every lane, and the lanes without it keep their verdicts."""
     ex, ey, ez, er, verdicts = (torch.from_numpy(a) for a in finish_edge_lanes())
     zero = torch.zeros((2, 20), dtype=torch.int32)
     y0 = zero.clone()
     y0[1, 0] = 1
     r0 = torch.zeros((2, 32), dtype=torch.uint8)
     r0[1, 0] = 1
-    assert TT._finish_encode_compare(zero, y0, zero, r0.int()).tolist() == [True, False]
+    tree = np.asarray(_jax_finish(*(jnp.asarray(c.numpy()) for c in (zero, y0, zero, r0.int()))))
+    assert tree.tolist() == [True, False]
+    assert TT._finish_encode_compare(zero, y0, zero, r0.int()).tolist() == [False, False]
     assert TT.finish_encode_compare(zero, y0, zero, r0).tolist() == [False, False]
     x, y, z = (torch.cat([zero, c]) for c in (ex, ey, ez))
     got = TT.finish_encode_compare(x, torch.cat([y0, ey]), z, torch.cat([r0, er]))
-    assert got[:2].tolist() == [False, False]
+    assert not got.any()
     assert torch.equal(TT.finish_encode_compare(ex, ey, ez, er), verdicts)
