@@ -12,9 +12,10 @@ bytes):
    builds the kernels from `tendermint_tpu_torch/csrc` (ptxas register
    and spill lines printed);
 2. consensus commit: one commit of a 10,000-validator set through
-   `default_verifier().verify_commits` — tables built on the card, the
-   entries-chain kernel (`madd_chain_entries`, selecting its entries
-   from the tables itself);
+   `verify_commits` of the table backend under `default_verifier()`
+   (the bare `TableBatchVerifier`, as in every earlier run) — tables
+   built on the card, the entries-chain kernel (`madd_chain_entries`,
+   selecting its entries from the tables itself);
 3. fast-sync window: 16 stacked commits of a 1000-validator set — the
    fused kernel (`madd_chain_fused`);
 4. flat batch: `verify_batch` on 4096 triples with distinct keys — the
@@ -35,6 +36,22 @@ bytes):
    (padding, copy in, leaf kernel, levels, copy back), the card's kernels
    in one data_hash call (torch.profiler) and the host-vs-card crossover
    at 256-65k leaves;
+6. stack: the same work through the stack a node calls,
+   `default_verifier()` = CoalescingVerifier -> ResilientVerifier ->
+   TableBatchVerifier and `default_hasher()` = ResilientTreeHasher:
+   the 10k commit 5 times on an empty verified-signature cache and 5
+   times with its good lanes from the cache (medians, and the cache
+   filter's time alone, beside the bare phase's), the fast-sync window through
+   `verify_commits_async`, four consumer threads of 1,024 flat triples
+   each through `verify_batch_async` (coalesced), a fault drill on a
+   512-validator set (the breaker tripped by injected faults, no launch
+   while open, a probe that re-closes it; a table build degraded to the
+   CPU for a 64-key set and to host crypto for a 512-key set), and the
+   hash plane's data_hash (healthy and with one injected fault) and
+   state-sync leaf hashes through the resilient hasher. Each step fails
+   on an inexact mask, a missing launch, or a primary failure or host
+   fallback it did not inject. Each step's launches stand on its own
+   line; the kernels line keeps the bare phases' counts;
 1. kernel vs plain: each kernel against its plain torch version on the
    card, on the inputs its phase gave it (the entries chain also at
    4096 lanes and at 3 commits of the fast-sync set), compared exactly
@@ -955,6 +972,360 @@ def hash_profile(dev, sync, rep, txs, chunks) -> None:
     log({"phase": "hash", "part": "crossover", "sha256": cross})
 
 
+# the stack phase's fault drill: a validator set of DEVICE_MIN_BATCH keys
+# (the least commit the table backend sends to the card), a set of
+# FAULT_SMALL_KEYS keys in stacks of FAULT_SMALL_K commits (a table build
+# the breaker degrades to the CPU; K = 8 takes the fused chain) and
+# STACK_CONSUMERS flat consumers
+FAULT_SMALL_KEYS = 64
+FAULT_SMALL_K = 8
+STACK_CONSUMERS = 4
+VERIFY_KERNELS = ("madd_chain_entries", "madd_chain_fused", "ladder", "finish_encode_compare")
+
+
+def check_layers(stack) -> None:
+    """`default_verifier()` must hand out the JAX node's layering on the
+    card: CoalescingVerifier -> ResilientVerifier -> TableBatchVerifier."""
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.resilient import ResilientVerifier
+    from tendermint_tpu_torch.services.verifier import TableBatchVerifier
+
+    inner = getattr(stack, "inner", None)
+    primary = getattr(inner, "primary", None)
+    if not (
+        isinstance(stack, CoalescingVerifier)
+        and isinstance(inner, ResilientVerifier)
+        and isinstance(primary, TableBatchVerifier)
+        and primary.device.type == "cuda"
+    ):
+        raise AssertionError(f"default_verifier() is not the node's stack on the card: {stack!r}")
+
+
+class StackHealth:
+    """Resilient wrappers' host fallbacks and primary failures (each
+    wrapper's own, by its kind), read before and after each step: a step
+    fails when a failure or a fallback it did not inject shows up (a
+    broken kernel must not hide behind the resilient layer's host
+    answer). The registry's `tendermint_device_dispatch_failures_total`
+    sums these over every wrapper of a kind."""
+
+    def __init__(self, *wrappers):
+        self.wrappers = wrappers
+        self.base = self.read()
+
+    def read(self) -> dict:
+        snaps = [w.snapshot() for w in self.wrappers]
+        return {s["kind"]: (s["fallback_calls"], s["total_failures"]) for s in snaps}
+
+    def check(self, what: str, expect: dict | None = None) -> dict:
+        """`expect` maps a kind to the (fallbacks, failures) the step
+        injected; every other kind must not move."""
+        now = self.read()
+        moved = {k: (now[k][0] - self.base[k][0], now[k][1] - self.base[k][1]) for k in now}
+        want = {k: (expect or {}).get(k, (0, 0)) for k in now}
+        if moved != want:
+            raise AssertionError(f"stack {what}: fallbacks and failures {moved}, expected {want}")
+        self.base = now
+        return moved
+
+
+def _counter(name: str, **labels) -> float:
+    from tendermint_tpu_torch.telemetry import REGISTRY
+
+    return REGISTRY.counter_value(name, **labels)
+
+
+def _hist(name: str, **labels) -> tuple[float, int]:
+    from tendermint_tpu_torch.telemetry import REGISTRY
+
+    fam = REGISTRY.get(name)
+    snap = fam.labels(**labels).value if labels else fam.value
+    return snap["sum"], snap["count"]
+
+
+def _launched(c: dict, names, what: str) -> None:
+    for name in names:
+        if c[name] == 0:
+            raise AssertionError(f"stack {what}: {name} did not launch")
+
+
+def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict:
+    """Phase 6: the main path's work through the stack a node calls.
+    `commit`, `window`, `flat` are the earlier phases' inputs with their
+    expected masks and bare warm medians; `hashed` is the hash phase's
+    block, its sha256 root and the state-sync chunks. Each step's
+    launches are zeroed just before it and read just after, and stand on
+    its own line only: the kernels line keeps the bare phases' counts."""
+    import hashlib
+    import threading
+
+    from tendermint_tpu_torch.merkle import simple as host
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.services.resilient import ResilientTreeHasher, ResilientVerifier
+    from tendermint_tpu_torch.services.verifier import DEVICE_MIN_BATCH, TableBatchVerifier
+    from tendermint_tpu_torch.utils import fail
+    from tendermint_tpu_torch.utils.circuit import CLOSED, OPEN, CircuitBreaker
+
+    rep: dict = {}
+    hits = "tendermint_verify_cache_hits_total"
+
+    hasher = default_hasher()
+    if not (isinstance(hasher, ResilientTreeHasher) and hasher.primary.device == stack.inner.primary.device):
+        raise AssertionError(f"default_hasher() is not a ResilientTreeHasher on the stack's card: {hasher!r}")
+    health = StackHealth(stack.inner, hasher)
+    failures = "tendermint_device_dispatch_failures_total"
+    failures0 = {k: _counter(failures, kind=k) for k in ("verify", "hash")}
+
+    # 1. the consensus commit: `reps` cold calls, each on an empty
+    # verified-signature cache (the stack's own first call, then fresh
+    # CoalescingVerifiers over the same resilient layer and table cache),
+    # and `reps` calls from the stack's cache. Before each call its cache
+    # filter is timed alone on the same cache.
+    pubs, commits, expected, bare_s = commit
+    good = int(expected.sum())
+    runs: dict = {"cold": [], "cached": []}
+
+    def commit_call(v, kind):
+        t0 = time.perf_counter()
+        v._filter_lanes(pubs, commits)
+        filter_s = time.perf_counter() - t0
+        got = []
+        h0 = _counter(hits)
+        reset_counts()
+        dt = timed(lambda: got.append(v.verify_commits(pubs, commits)), sync)
+        c = counts()
+        check_mask(f"stack commit ({kind})", got[0], expected[None, :])
+        hit = int(_counter(hits) - h0)
+        if hit != (good if kind == "cached" else 0):
+            raise AssertionError(f"stack commit ({kind}): {hit} cache hits of {good} good lanes")
+        _launched(c, ("madd_chain_entries", "finish_encode_compare"), f"commit ({kind})")
+        runs[kind].append({"s": dt, "filter_s": filter_s, "cache_hits": hit, "launches": c})
+
+    commit_call(stack, "cold")
+    for _ in range(reps - 1):
+        v = CoalescingVerifier(stack.inner)
+        try:
+            commit_call(v, "cold")
+        finally:
+            v.close()
+    for _ in range(reps):
+        commit_call(stack, "cached")
+    health.check("commit")
+    med = {f"{kind}_{key}_median": statistics.median(r[key] for r in rs)
+           for kind, rs in runs.items() for key in ("s", "filter_s")}
+    rep["commit"] = {"validators": len(pubs), "reps": reps, **med, "bare_warm_s_median": bare_s,
+                     "cold_s": [r["s"] for r in runs["cold"]], "cached_s": [r["s"] for r in runs["cached"]],
+                     "cache_hits": [r["cache_hits"] for r in runs["cold"] + runs["cached"]],
+                     "launches": {kind: rs[0]["launches"] for kind, rs in runs.items()}}
+    log({"phase": "stack", "step": "commit", **rep["commit"]})
+    rep["cache_filter"] = {"lanes": len(pubs), "reps": reps,
+                           "cold_s": [r["filter_s"] for r in runs["cold"]],
+                           "cached_s": [r["filter_s"] for r in runs["cached"]],
+                           "cold_s_median": med["cold_filter_s_median"],
+                           "cached_s_median": med["cached_filter_s_median"]}
+    log({"phase": "stack", "step": "cache_filter", **rep["cache_filter"]})
+
+    # 2. the fast-sync window through the async surface; the stack has not
+    # seen phase 3's signatures, so its cache holds none of them
+    pubs, commits, expected, bare_s = window
+    h0 = _counter(hits)
+    ov0 = _hist("tendermint_dispatch_overlap_ratio", queue="default")
+    reset_counts()
+    got = []
+    dt = timed(lambda: got.append(stack.verify_commits_async(pubs, commits, consumer="fastsync").result()), sync)
+    c = counts()
+    check_mask("stack window", got[0], expected)
+    if _counter(hits) != h0:
+        raise AssertionError("stack window: the cache answered lanes it never saw")
+    _launched(c, ("madd_chain_fused", "finish_encode_compare"), "window")
+    health.check("window")
+    ov1 = _hist("tendermint_dispatch_overlap_ratio", queue="default")
+    rep["window"] = {"validators": len(pubs), "window": len(commits), "s": dt, "bare_warm_s_median": bare_s,
+                     "overlap_ratio": (ov1[0] - ov0[0]) / max(1, ov1[1] - ov0[1]), "launches": c}
+    log({"phase": "stack", "step": "window", **rep["window"]})
+
+    # 3. flat triples from STACK_CONSUMERS threads at once, coalesced
+    triples, expected, bare_s = flat
+    per = len(triples) // STACK_CONSUMERS
+    parts = [(triples[i * per:(i + 1) * per], expected[i * per:(i + 1) * per]) for i in range(STACK_CONSUMERS)]
+    flush0 = sum(_counter("tendermint_batcher_flush_total", reason=r) for r in ("window", "size", "barrier"))
+    h0 = _counter(hits)
+    outs = [None] * STACK_CONSUMERS
+    errors = []
+    start = threading.Barrier(STACK_CONSUMERS + 1)
+
+    def consumer(i):
+        try:
+            start.wait()
+            outs[i] = stack.verify_batch_async(parts[i][0], consumer=f"consumer{i}").result(timeout=300)
+        except Exception as e:  # reported below: the step fails
+            errors.append(e)
+
+    reset_counts()
+    threads = [threading.Thread(target=consumer, args=(i,)) for i in range(STACK_CONSUMERS)]
+    for t in threads:
+        t.start()
+    sync()
+    t0 = time.perf_counter()
+    start.wait()
+    for t in threads:
+        t.join(timeout=300)
+    sync()
+    dt = time.perf_counter() - t0
+    c = counts()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"stack flat: consumers failed: {errors}")
+    for i, (out, (_t, exp)) in enumerate(zip(outs, parts)):
+        check_mask(f"stack flat consumer {i}", out, exp)
+    if _counter(hits) != h0:
+        raise AssertionError("stack flat: the cache answered triples it never saw")
+    merged = int(sum(_counter("tendermint_batcher_flush_total", reason=r) for r in ("window", "size", "barrier")) - flush0)
+    if not 1 <= c["ladder"] <= STACK_CONSUMERS:
+        raise AssertionError(f"stack flat: {c['ladder']} ladder launches for {STACK_CONSUMERS} consumers")
+    _launched(c, ("ladder", "finish_encode_compare"), "flat")
+    health.check("flat")
+    rep["flat"] = {"consumers": STACK_CONSUMERS, "lanes_each": per, "s": dt, "bare_warm_s_median": bare_s,
+                   "merged_launches": merged, "verifies_per_s": per * STACK_CONSUMERS / dt, "launches": c}
+    log({"phase": "stack", "step": "flat", **rep["flat"]})
+
+    # 4. the fault drill, on a resilient verifier of its own. Its breaker
+    # runs on a clock this step moves: a host-answered 512-lane call
+    # outlasts the 0.5 s reset, and the drill needs a call while OPEN.
+    clock = [0.0]
+    faulty = ResilientVerifier(
+        TableBatchVerifier(device=stack.inner.primary.device),
+        breaker=CircuitBreaker(3, 0.5, clock=lambda: clock[0]),
+    )
+    drill = StackHealth(faulty)
+    n = DEVICE_MIN_BATCH
+    sets = {"main": list(range(n)),
+            "small": list(range(n, n + FAULT_SMALL_KEYS)),
+            "large": list(range(n + FAULT_SMALL_KEYS, 2 * n + FAULT_SMALL_KEYS))}
+
+    def fresh(keys, k=1):
+        """k commits over `keys` with fresh messages, one forged lane each."""
+        rows, exp = [], []
+        for _ in range(k):
+            p, m, sg, e = make_commit(inp, keys, {"forged": 7})
+            rows.append((m, sg))
+            exp.append(e)
+        return p, rows, np.stack(exp)
+
+    drill_rep: dict = {"validators": n, "calls": []}
+    host_s = [0.0]
+    t_phase = time.perf_counter()
+
+    def call(what, keys, k=1, host=False):
+        p, rows, exp = fresh(keys, k)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = faulty.verify_commits(p, rows)
+        sync()
+        dt = time.perf_counter() - t0
+        c = counts()
+        check_mask(f"stack faults: {what}", out, exp)
+        if host:
+            host_s[0] += dt
+        row = {"call": what, "s": dt, "state": faulty.breaker.state,
+               "verify_launches": sum(c[x] for x in VERIFY_KERNELS)}
+        drill_rep["calls"].append(row)
+        log({"phase": "stack", "step": "faults", **row})
+        return c
+
+    fail.set_device_fault("verify", -1)
+    trips = 0
+    while faulty.breaker.snapshot()["times_opened"] == 0:
+        trips += 1
+        if trips > 5:
+            raise AssertionError("stack faults: the breaker did not open")
+        c = call("faulted", sets["main"], host=True)
+        if sum(c[x] for x in VERIFY_KERNELS):
+            raise AssertionError("stack faults: a verify kernel launched under an injected fault")
+    fail.clear_device_faults()
+    if faulty.breaker.state != OPEN:
+        raise AssertionError(f"stack faults: breaker {faulty.breaker.state} after the trip")
+    c = call("open", sets["main"], host=True)
+    if sum(c[x] for x in VERIFY_KERNELS):
+        raise AssertionError("stack faults: a verify kernel launched while the breaker was open")
+    clock[0] += 0.5  # the reset window elapses
+    c = call("probe", sets["main"])
+    if faulty.breaker.state != CLOSED:
+        raise AssertionError(f"stack faults: the probe left the breaker {faulty.breaker.state}")
+    _launched(c, ("madd_chain_entries", "finish_encode_compare"), "faults probe")
+    snap = faulty.snapshot()
+    faults_seen = snap["total_failures"]
+    drill.check("trip and probe", {"verify": (trips + 1, faults_seen)})
+    hb0 = _counter("tendermint_verify_table_cache_total", event="host_build")
+    fail.set_device_fault("tables", 1)
+    c = call("tables_cpu_build", sets["small"], k=FAULT_SMALL_K)
+    fail.clear_device_faults()
+    if _counter("tendermint_verify_table_cache_total", event="host_build") != hb0 + 1:
+        raise AssertionError("stack faults: the small set's tables were not built on the CPU")
+    _launched(c, ("madd_chain_fused", "finish_encode_compare"), "faults CPU-built tables")
+    fail.set_device_fault("tables", 1)
+    c = call("tables_host_crypto", sets["large"], host=True)
+    fail.clear_device_faults()
+    if sum(c[x] for x in VERIFY_KERNELS):
+        raise AssertionError("stack faults: a verify kernel launched without tables")
+    if faulty.primary._build_breaker.snapshot()["total_failures"] != 2:
+        raise AssertionError("stack faults: the table-build breaker did not count both faults")
+    drill.check("table builds")  # the build degradations are the primary's own answers
+    drill_rep.update(trip_calls=trips, breaker=faulty.snapshot(),
+                     table_breaker=faulty.primary._build_breaker.snapshot(),
+                     host_s=host_s[0], phase_s=time.perf_counter() - t_phase, breaker_clock="moved by the step")
+    rep["faults"] = drill_rep
+    log({"phase": "stack", "step": "faults", **{k: v for k, v in drill_rep.items() if k != "calls"}})
+
+    # 5. the hash plane through the resilient hasher
+    txs, want_root, chunks = hashed
+    reset_counts()
+    t0 = time.perf_counter()
+    root = hasher.root_from_items(txs)
+    sync()
+    healthy_s = time.perf_counter() - t0
+    c_ok = counts()
+    if root != want_root:
+        raise AssertionError("stack hash: the resilient hasher's root differs from the host tree's")
+    _launched(c_ok, ("sha256_masked", "merkle_level"), "data_hash")
+    health.check("data_hash")
+    f0 = hasher.breaker.snapshot()["total_failures"]
+    fail.set_device_fault("hash", 1)
+    reset_counts()
+    root = hasher.root_from_items(txs)
+    c_fault = counts()
+    fail.clear_device_faults()
+    if root != want_root or hasher.breaker.snapshot()["total_failures"] != f0 + 1:
+        raise AssertionError("stack hash: the faulted data_hash's root or failure count is wrong")
+    # the one in-call retry answers on the card
+    _launched(c_fault, ("sha256_masked", "merkle_level"), "faulted data_hash")
+    health.check("faulted data_hash", {"hash": (0, 1)})
+    reset_counts()
+    t0 = time.perf_counter()
+    leaves = hasher.leaf_hashes_async(chunks).result()
+    leaves_s = time.perf_counter() - t0
+    c_leaves = counts()
+    if leaves != [hashlib.sha256(b"\x00" + ch).digest() for ch in chunks]:
+        raise AssertionError("stack hash: leaf_hashes_async differs from hashlib")
+    if host.simple_hash_from_hashes(leaves) != hasher.root_from_hashes(leaves):
+        raise AssertionError("stack hash: the chunk root differs from the host tree's")
+    _launched(c_leaves, ("sha256_masked",), "leaf_hashes_async")
+    health.check("leaf_hashes_async")
+    rep["hash"] = {"txs": len(txs), "data_hash_s": healthy_s, "launches": c_ok, "faulted_launches": c_fault,
+                   "breaker": hasher.snapshot(), "chunks": len(chunks), "leaf_hashes_async_s": leaves_s}
+    log({"phase": "stack", "step": "hash", **rep["hash"]})
+    # the registry's failure counters moved by exactly the injected faults
+    injected = {"verify": faults_seen, "hash": 1}
+    moved = {k: int(_counter(failures, kind=k) - failures0[k]) for k in injected}
+    if moved != injected:
+        raise AssertionError(f"stack: dispatch failures {moved}, injected {injected}")
+    rep["dispatch_failures"] = moved
+    stack.close()
+    default_dispatch_queue().close()
+    return rep
+
+
 def run(args) -> dict:
     import torch
 
@@ -996,7 +1367,11 @@ def run(args) -> dict:
 
     inp = Inputs(args.seed, args.validators)
     log({"phase": "keys", "n": args.validators, "keygen_s": inp.keygen_s})
-    verifier = default_verifier()
+    stack = default_verifier()
+    check_layers(stack)
+    # phases 2-4 time the bare table backend, as in every earlier run;
+    # the stack phase shares its table cache
+    verifier = stack.inner.primary
     launches: dict = {}
 
     # -- phase 2: consensus commit, N validators, K = 1 -----------------------
@@ -1133,6 +1508,16 @@ def run(args) -> dict:
     hrep, hlaunches, (txs, trees, chunks, sha512_msgs) = run_hash(args.seed, dev, sync)
     launches.update(hlaunches)
     report["hash"] = hrep
+
+    # -- phase 6: the same work through the node's stack ---------------------
+    report["stack"] = run_stack(
+        stack, inp, sync,
+        commit=(pubs2, commit, exp2, p2["warm_commit_s_median"]),
+        window=(pubs3, commits3, exp3, med3),
+        flat=(triples, exp4, med4),
+        hashed=(txs, bytes.fromhex(hrep["data_hash"]["sha256"]["root"]), chunks),
+        reps=args.reps,
+    )
 
     # -- phase 1: each kernel against its plain version, then timed ----------
 

@@ -8,18 +8,30 @@ card (`ops/merkle_kernel.py`); the host backend is the bit-identical
 sequential reference (`merkle/simple.py`). Both tree variants run:
 `sha256` (the framework's) and `ripemd160` (the reference-compatible
 tree). Proofs stay on the host.
+
+`default_hasher()` / `auto_hasher()` wrap the device hasher in
+`ResilientTreeHasher` (`services/resilient.py`), so a device fault
+degrades block hashing to host hashlib behind a breaker; each backend
+reports its calls to the metric catalog and the launch ledger.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
 from tendermint_tpu_torch.device import resolve_device
 from tendermint_tpu_torch.merkle import simple as host_merkle
+from tendermint_tpu_torch.telemetry import metrics as _metrics
+
+
+def _observe_hash(backend: str, leaves: int, seconds: float) -> None:
+    _metrics.HASH_BATCH_LEAVES.labels(backend=backend).observe(leaves)
+    _metrics.HASH_SECONDS.labels(backend=backend).observe(seconds)
 
 # Below this leaf count the host's hashlib tree answers. On the H100 the
 # card's tree of 250-byte leaves beat the host's from 1,024 leaves and
@@ -56,14 +68,20 @@ class TreeHasher:
 
     def root_from_items(self, items: list[bytes]) -> bytes:
         """SimpleMerkle root over raw byte leaves (leaf-prefixed hashes)."""
+        t0 = time.perf_counter()
         if self._use_device(len(items)):
             from tendermint_tpu_torch.ops.merkle_kernel import merkle_root_device
 
-            return merkle_root_device(items, self.algo, self.device)
-        return host_merkle.simple_hash_from_byte_slices(items, self.algo)
+            out = merkle_root_device(items, self.algo, self.device)
+            _observe_hash("device", len(items), time.perf_counter() - t0)
+            return out
+        out = host_merkle.simple_hash_from_byte_slices(items, self.algo)
+        _observe_hash("host", len(items), time.perf_counter() - t0)
+        return out
 
     def root_from_hashes(self, hashes: list[bytes]) -> bytes:
         """Root over already-hashed leaves (PartSet/Commit aggregation)."""
+        t0 = time.perf_counter()
         if self._use_device(len(hashes)):
             from tendermint_tpu_torch.ops.merkle_kernel import merkle_root_from_leaf_words
             from tendermint_tpu_torch.ops.padding import digests_to_bytes_be, digests_to_bytes_le
@@ -75,18 +93,37 @@ class TreeHasher:
             )
             words = np.frombuffer(b"".join(hashes), dtype=dt).astype(np.uint32).reshape(len(hashes), -1)
             root = merkle_root_from_leaf_words(words, algo=self.algo, device=self.device)
-            return to_bytes(to_u32(root)[None, :])[0]
-        return host_merkle.simple_hash_from_hashes(hashes, self.algo)
+            out = to_bytes(to_u32(root)[None, :])[0]
+            _observe_hash("device", len(hashes), time.perf_counter() - t0)
+            return out
+        out = host_merkle.simple_hash_from_hashes(hashes, self.algo)
+        _observe_hash("host", len(hashes), time.perf_counter() - t0)
+        return out
 
     def leaf_hashes(self, items: list[bytes]) -> list[bytes]:
         """Per-item domain-separated leaf hashes (state-sync chunk
         verification): one kernel launch above the threshold, host
         hashlib below it."""
+        t0 = time.perf_counter()
         if self._use_device(len(items)):
             from tendermint_tpu_torch.ops.merkle_kernel import leaf_hashes_device
 
-            return leaf_hashes_device(items, self.algo, self.device)
-        return [host_merkle.leaf_hash(x, self.algo) for x in items]
+            out = leaf_hashes_device(items, self.algo, self.device)
+            _observe_hash("device", len(items), time.perf_counter() - t0)
+            return out
+        out = [host_merkle.leaf_hash(x, self.algo) for x in items]
+        _observe_hash("host", len(items), time.perf_counter() - t0)
+        return out
+
+    def leaf_hashes_async(self, items: list[bytes], queue=None):
+        """`leaf_hashes` through a `DispatchQueue` handle: the state-sync
+        chunk gate submits the whole set's hash and decodes payloads
+        while it runs. The resilient wrapper overrides this with the
+        breaker-guarded version."""
+        from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+
+        q = queue if queue is not None else default_dispatch_queue()
+        return q.submit(lambda: self.leaf_hashes(items), kind="hash")
 
     def proofs(self, items: list[bytes]):
         """Merkle proofs stay on the host: O(N log N) pointer work, tiny data."""
@@ -98,19 +135,24 @@ _DEFAULTS_LOCK = threading.Lock()
 
 
 def default_hasher(device=None) -> TreeHasher:
-    """Process-wide device hasher, one per device: on the card, or on
-    `device` when given. Raises when no card is present and no device was
+    """Process-wide device hasher, one per device, on the card (or on
+    `device` when given), wrapped in `ResilientTreeHasher` as the JAX
+    package's is. Raises when no card is present and no device was
     given."""
     dev = resolve_device(device)
     with _DEFAULTS_LOCK:
         if dev not in _DEFAULTS:
-            _DEFAULTS[dev] = TreeHasher(backend="device", device=dev)
+            _DEFAULTS[dev] = auto_hasher(dev)
         return _DEFAULTS[dev]
 
 
 def auto_hasher(device=None) -> TreeHasher:
-    """A new device-backed hasher on the card (or on `device`), for a node's
-    composition root. Raises without a card and without a device: it never
-    answers with the host backend on its own (`TreeHasher(backend="host")`
-    is there on request)."""
-    return TreeHasher(backend="device", device=resolve_device(device))
+    """A new device-backed hasher on the card (or on `device`), wrapped
+    in `ResilientTreeHasher`, for a node's composition root. Raises
+    without a card and without a device rather than pick the host
+    backend. The wrapper answers with host hashlib only on an injected
+    device fault or a dispatch timeout: a real kernel error raises
+    (`services/resilient.py`)."""
+    from tendermint_tpu_torch.services.resilient import ResilientTreeHasher
+
+    return ResilientTreeHasher(TreeHasher(backend="device", device=resolve_device(device)))

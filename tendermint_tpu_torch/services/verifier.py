@@ -14,15 +14,24 @@ comb tables, `ops.ed25519_tables`: the consensus and fast-sync path).
 
 Device backends run on the CUDA card unless constructed with
 `device="cpu"`; without a card and without a device they raise. A
-device failure raises to the caller: nothing here reroutes to host
-crypto.
+verify-kernel failure raises to the caller. `default_verifier()` hands
+out the wrapper of `services/resilient.py`, which reroutes to host
+crypto only on an injected device fault or a dispatch timeout.
+Comb-table construction has its own breaker here: an injected build
+fault degrades to a build on the CPU (small sets) or to host crypto.
+
+Every backend also has the async surface of `services/dispatch.py`
+(`verify_batch_async`, and `verify_commits_async` on the table backend),
+and reports its calls to the metric catalog (`telemetry/`).
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Sequence
 
@@ -41,12 +50,31 @@ from tendermint_tpu_torch.ops.ed25519_tables import (
     prepare_commit_lanes,
     verify_tables_kernel,
 )
+from tendermint_tpu_torch.telemetry import metrics as _metrics
+from tendermint_tpu_torch.utils.circuit import CircuitBreaker
+from tendermint_tpu_torch.utils.fail import InjectedDeviceFault, device_fail_point
+from tendermint_tpu_torch.utils.log import kv, logger
 
 Triple = tuple[bytes, bytes, bytes]  # (pubkey32, message, signature64)
 
 
+def _observe_verify(backend: str, n: int, seconds: float) -> None:
+    """One verify call's worth of telemetry. Each executing backend
+    reports itself, so a resilient host fallback shows up under
+    backend="host" while the failed device attempt stays with the
+    dispatch-failure counters."""
+    _metrics.VERIFY_BATCH_SIZE.labels(backend=backend).observe(n)
+    _metrics.VERIFY_SECONDS.labels(backend=backend).observe(seconds)
+
+
 class BatchVerifier:
     """Interface + shared accumulate/flush bookkeeping."""
+
+    # Every verifier here tolerates the `consumer=` tag on its async
+    # surface (the coalescer uses it for fairness and wait telemetry;
+    # plain backends ignore it); call sites gate on this attribute
+    # (`services/batcher.py::consumer_kwargs`).
+    accepts_consumer = True
 
     def verify_batch(self, triples: Sequence[Triple]) -> np.ndarray:
         raise NotImplementedError
@@ -82,16 +110,32 @@ class BatchVerifier:
     def finalize_verify_batch(self, launched) -> np.ndarray:
         return launched
 
+    def verify_batch_async(self, triples: Sequence[Triple], queue=None, consumer: str = "default"):
+        """Submit a batch verify through a `DispatchQueue`; returns a
+        `VerifyHandle` whose `.result()` yields the mask `verify_batch`
+        would. The verdict stays on the card until the join. `consumer`
+        only matters to the coalescing wrapper."""
+        from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+
+        q = queue if queue is not None else default_dispatch_queue()
+        return q.submit(
+            lambda: self.launch_verify_batch(triples),
+            self.finalize_verify_batch,
+            kind="verify",
+        )
+
 
 class HostBatchVerifier(BatchVerifier):
     """Sequential host backend over the pure-Python `PubKey`."""
 
     def verify_batch(self, triples: Sequence[Triple]) -> np.ndarray:
+        t0 = time.perf_counter()
         out = np.zeros(len(triples), dtype=bool)
         for i, (pk, msg, sig) in enumerate(triples):
             if len(pk) != PUBKEY_LEN:
                 continue
             out[i] = PubKey(pk).verify(msg, sig)
+        _observe_verify("host", len(triples), time.perf_counter() - t0)
         return out
 
 
@@ -128,15 +172,26 @@ class DeviceBatchVerifier(BatchVerifier):
         if len(triples) < self._min_batch:
             return ("host", self._host.verify_batch(triples))
         pubs, msgs, sigs = zip(*triples)
+        t0 = time.perf_counter()
         launched = launch_batch_verify(
             list(pubs), list(msgs), list(sigs), device=self.device
         )
-        return ("device", launched)
+        return ("device", launched, t0)
 
     def finalize_verify_batch(self, launched) -> np.ndarray:
         if launched[0] == "host":
             return launched[1]
-        return materialize_batch_verify(launched[1])
+        _tag, payload, t0 = launched
+        out = materialize_batch_verify(payload)
+        # launch -> copied back, the time in flight included
+        _observe_verify("device", len(out), time.perf_counter() - t0)
+        return out
+
+
+class TableBuildError(RuntimeError):
+    """Comb-table construction is unavailable (the device build faulted
+    and the set is too large to build on the CPU); callers answer with
+    host crypto."""
 
 
 class TableBatchVerifier(DeviceBatchVerifier):
@@ -165,6 +220,15 @@ class TableBatchVerifier(DeviceBatchVerifier):
         self._tables: "OrderedDict[bytes, tuple]" = OrderedDict()
         self._cache_size = cache_size
         self._cache_lock = threading.RLock()
+        # Table construction has its own breaker: it is separate work
+        # from the verify kernels and can be sick on its own. N build
+        # faults stop the device builds; small sets then build on the
+        # CPU while the verify kernels stay on the card.
+        self._build_breaker = CircuitBreaker(
+            failure_threshold=int(os.environ.get("TENDERMINT_TPU_BREAKER_THRESHOLD", 3)),
+            reset_timeout_s=float(os.environ.get("TENDERMINT_TPU_BREAKER_RESET_S", 5.0)),
+            name="tables",
+        )
 
     @staticmethod
     def _cache_key(pubkeys: tuple[bytes, ...]) -> bytes:
@@ -219,7 +283,9 @@ class TableBatchVerifier(DeviceBatchVerifier):
             hit = self._tables.get(key)
             if hit is not None:
                 self._tables.move_to_end(key)
+                _metrics.TABLE_CACHE.labels(event="hit").inc()
                 return hit[1], hit[2]
+        _metrics.TABLE_CACHE.labels(event="miss").inc()
         tables, ok = self._build_tables(pubkeys)
         with self._cache_lock:
             self._tables[key] = (tuple(pubkeys), tables, ok)
@@ -228,15 +294,42 @@ class TableBatchVerifier(DeviceBatchVerifier):
         return tables, ok
 
     def _build_tables(self, pubkeys: tuple[bytes, ...]):
-        """Tables for an uncached set: incremental when a cached set
-        overlaps, else one device build."""
-        built = self._incremental_build(pubkeys)
-        if built is not None:
-            return built
-        pub = np.frombuffer(b"".join(pubkeys), dtype=np.uint8).reshape(
-            len(pubkeys), 32
+        """Tables for an uncached set, behind the table-build breaker:
+        the device build (incremental when a cached set overlaps). An
+        injected fault, or an open breaker, degrades to the torch build
+        on the CPU, moved to the device, for sets of at most
+        MAX_INCREMENTAL_KEYS keys, else raises `TableBuildError` so the
+        verify answers with host crypto. A real build error raises to
+        the caller."""
+        pub = np.frombuffer(b"".join(pubkeys), dtype=np.uint8).reshape(len(pubkeys), 32)
+        if self._build_breaker.allow():
+            try:
+                device_fail_point("tables")
+                built = self._incremental_build(pubkeys)
+                if built is not None:
+                    _metrics.TABLE_CACHE.labels(event="incremental").inc()
+                else:
+                    built = build_key_tables(pub, device=self.device)
+                self._build_breaker.record_success()
+                return built
+            except InjectedDeviceFault as e:
+                self._build_breaker.record_failure()
+                kv(
+                    logger("resilient"),
+                    logging.WARNING,
+                    "table build failed",
+                    n_keys=len(pubkeys),
+                    error=f"{type(e).__name__}: {e}"[:120],
+                    breaker=self._build_breaker.state,
+                )
+        if len(pubkeys) <= self.MAX_INCREMENTAL_KEYS:
+            _metrics.TABLE_CACHE.labels(event="host_build").inc()
+            tables, ok = build_key_tables(pub, device="cpu")
+            return tables.to(self.device), ok
+        raise TableBuildError(
+            f"table build unavailable for {len(pubkeys)} keys "
+            f"(breaker {self._build_breaker.state})"
         )
-        return build_key_tables(pub, device=self.device)
 
     def prebuild(self, pubkeys) -> None:
         """Warm the table cache for a validator set in the background —
@@ -251,6 +344,7 @@ class TableBatchVerifier(DeviceBatchVerifier):
         self,
         pubkeys: Sequence[bytes],
         commits: Sequence[tuple[Sequence[bytes | None], Sequence[bytes | None]]],
+        force_fused: bool | None = None,
     ) -> np.ndarray:
         """K commits over one N-validator set -> (K, N) bool verdicts.
 
@@ -258,13 +352,19 @@ class TableBatchVerifier(DeviceBatchVerifier):
         validator index, None marking absent votes (absent lanes report
         False). The K*N lanes verify in one launch against the cached
         tables; fast-sync stacks a window of commits into one call, and
-        the stack depth picks the chain (`verify_tables_kernel`)."""
-        return self.finalize_verify_commits(self.launch_verify_commits(pubkeys, commits))
+        the stack depth picks the chain (`verify_tables_kernel`).
 
-    def launch_verify_commits(self, pubkeys, commits):
+        `force_fused` overrides that pick: True takes the fused chain,
+        False the entries chain, None decides by the stack depth."""
+        return self.finalize_verify_commits(
+            self.launch_verify_commits(pubkeys, commits, force_fused=force_fused)
+        )
+
+    def launch_verify_commits(self, pubkeys, commits, force_fused: bool | None = None):
         """Async half of `verify_commits`: lane prep + one kernel launch,
-        the verdict tensor not yet synchronised. Small commits compute on
-        the host on the spot and tag themselves "host"."""
+        the verdict tensor not yet synchronised. Paths with no device
+        half (small commits, the table-build degradation) compute on the
+        host on the spot and tag themselves "host"."""
         n = len(pubkeys)
         k = len(commits)
         if n == 0 or k == 0:
@@ -277,23 +377,51 @@ class TableBatchVerifier(DeviceBatchVerifier):
         if not length_ok.all():
             placeholder = b"\x01" + b"\x00" * 31  # identity point encoding
             pubkeys = [pk if ok else placeholder for pk, ok in zip(pubkeys, length_ok)]
-        tables, key_ok = self.tables_for(tuple(pubkeys))
+        try:
+            tables, key_ok = self.tables_for(tuple(pubkeys))
+        except TableBuildError:
+            # table construction is down and the set is too big to
+            # build on the CPU: host crypto answers (slow but correct)
+            return ("host", self._host_commit_loop(pubkeys, commits))
         key_ok = key_ok & length_ok
+        impl = {None: "auto", True: "fused", False: "entries"}[force_fused]
+        t0 = time.perf_counter()
         s, h, r, precheck = prepare_commit_lanes(pubkeys, commits)
         s, h, r = (torch.from_numpy(a).to(self.device) for a in (s, h, r))
-        dev = verify_tables_kernel(tables, s, h, r)
-        return ("device", dev, precheck, key_ok, n, k)
+        dev = verify_tables_kernel(tables, s, h, r, impl=impl)
+        return ("device", dev, precheck, key_ok, n, k, t0)
 
     def finalize_verify_commits(self, launched) -> np.ndarray:
         if launched[0] == "host":
             return launched[1]
-        _tag, dev, precheck, key_ok, n, k = launched
+        _tag, dev, precheck, key_ok, n, k, t0 = launched
         out = dev.cpu().numpy() & precheck & np.tile(key_ok, k)
+        _observe_verify("tables", k * n, time.perf_counter() - t0)
         return out.reshape(k, n)
 
+    def verify_commits_async(
+        self,
+        pubkeys,
+        commits,
+        queue=None,
+        force_fused: bool | None = None,
+        consumer: str = "default",
+    ):
+        """`verify_commits` through the dispatch queue: a VerifyHandle
+        resolving to the (K, N) verdict grid, the kernels in flight
+        until the consumer joins."""
+        from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+
+        q = queue if queue is not None else default_dispatch_queue()
+        return q.submit(
+            lambda: self.launch_verify_commits(pubkeys, commits, force_fused=force_fused),
+            self.finalize_verify_commits,
+            kind="verify",
+        )
+
     def _host_commit_loop(self, pubkeys, commits) -> np.ndarray:
-        """Sequential host verification of commit-shaped lanes (the
-        small-commit path)."""
+        """Sequential host verification of commit-shaped lanes: the
+        small-commit path and the table-build degradation target."""
         n = len(pubkeys)
         out = np.zeros((len(commits), n), dtype=bool)
         for ci, (msgs, sigs) in enumerate(commits):
@@ -306,17 +434,43 @@ class TableBatchVerifier(DeviceBatchVerifier):
         return out
 
 
-_DEFAULTS: dict[torch.device, TableBatchVerifier] = {}
+_DEFAULTS: dict[torch.device, BatchVerifier] = {}
 _DEFAULTS_LOCK = threading.Lock()
 
 
-def default_verifier(device=None) -> TableBatchVerifier:
-    """Process-wide verifier, one per device: a `TableBatchVerifier` on
-    the card (or on `device` when given), so its table cache is shared
-    by every caller. Raises when no card is present and no device was
-    given."""
+def default_verifier(device=None) -> BatchVerifier:
+    """Process-wide verifier stack, one per device, as the JAX package's
+    `default_verifier` composes it on an accelerator:
+    `CoalescingVerifier(ResilientVerifier(TableBatchVerifier(device)))`.
+
+    The table backend runs on the card (or on `device` when given), so
+    its table cache is shared by every caller; the resilient layer
+    degrades a device fault to host crypto behind a breaker
+    (`services/resilient.py`); the outermost layer is the
+    verified-signature cache plus the cross-consumer coalescer
+    (`services/batcher.py`), dropped with TENDERMINT_TPU_COALESCE=0.
+    Raises when no card is present and no device was given."""
     dev = resolve_device(device)
     with _DEFAULTS_LOCK:
         if dev not in _DEFAULTS:
-            _DEFAULTS[dev] = TableBatchVerifier(device=dev)
+            from tendermint_tpu_torch.services.resilient import ResilientVerifier
+
+            stack: BatchVerifier = ResilientVerifier(TableBatchVerifier(device=dev))
+            if os.environ.get("TENDERMINT_TPU_COALESCE", "1") != "0":
+                from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+
+                stack = CoalescingVerifier(stack)
+            _DEFAULTS[dev] = stack
         return _DEFAULTS[dev]
+
+
+def set_default_verifier(v: BatchVerifier | None, device=None) -> None:
+    """Install `v` as the process-wide verifier of `device` (the card
+    when not given); None drops the entry, so the next
+    `default_verifier` builds a fresh stack."""
+    dev = resolve_device(device)
+    with _DEFAULTS_LOCK:
+        if v is None:
+            _DEFAULTS.pop(dev, None)
+        else:
+            _DEFAULTS[dev] = v

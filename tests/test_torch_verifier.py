@@ -268,6 +268,12 @@ def test_cpu_tensors_never_count_a_launch(table_verifier, privs):
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.resilient import ResilientVerifier
+
+    # the suite turns on the JAX package's lock-rank sanitizer, which the
+    # port's coalescer refuses (not ported)
+    monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(V, "_DEFAULTS", {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -278,8 +284,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         T.batch_verify([b"\x01" * 32], [b"m"], [b"\x00" * 64])
     assert V._DEFAULTS == {}
     v = V.default_verifier(device="cpu")
-    assert isinstance(v, V.TableBatchVerifier) and v.device.type == "cpu"
-    assert V.default_verifier(device="cpu") is v  # one shared table cache
+    try:
+        # the JAX node's layering: coalescing -> resilient -> table backend
+        assert isinstance(v, CoalescingVerifier) and isinstance(v.inner, ResilientVerifier)
+        assert isinstance(v.inner.primary, V.TableBatchVerifier)
+        assert v.inner.primary.device.type == "cpu"
+        assert V.default_verifier(device="cpu") is v  # one shared table cache
+        monkeypatch.setenv("TENDERMINT_TPU_COALESCE", "0")
+        monkeypatch.setattr(V, "_DEFAULTS", {})
+        bare = V.default_verifier(device="cpu")
+        assert type(bare) is ResilientVerifier and isinstance(bare.primary, V.TableBatchVerifier)
+        V.set_default_verifier(v, device="cpu")
+        assert V.default_verifier(device="cpu") is v
+    finally:
+        v.close()
 
 
 def _zero_key_message() -> tuple[bytes, bytes]:
