@@ -11,12 +11,18 @@ repository root (listed in `.gitignore`).
 Every C entry point takes its pointers and the CUDA stream as
 `void*` and returns `cudaGetLastError()` right after its launch;
 `check` turns a non-zero code into an exception.
+
+`warm` does the first-use work (build or find the library, load it,
+create the card's CUDA context, run the caller's routes once) in a
+background thread, so that a node's first verify does not pay for it;
+`build/kernels/` is also what keeps a built library across processes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import pathlib
 import shutil
@@ -24,6 +30,9 @@ import subprocess
 import threading
 
 import torch
+
+from tendermint_tpu_torch.utils import shutdown
+from tendermint_tpu_torch.utils.log import kv, logger
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -46,6 +55,8 @@ SIGNATURES = {
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
+# what a failed `warm` raised, for the next `kernel_lib` call to raise
+_WARM_ERROR: BaseException | None = None
 # what the last build printed (ptxas register/spill lines with verbose=True)
 BUILD_LOG: list[str] = []
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -120,9 +131,13 @@ def build(verbose: bool = False) -> pathlib.Path:
 
 
 def kernel_lib(verbose: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    global _LIB
+    """The loaded kernel library, built at first use. Raises the error of
+    a failed `warm` once, then builds anew."""
+    global _LIB, _WARM_ERROR
     with _LOCK:
+        if _WARM_ERROR is not None:
+            err, _WARM_ERROR = _WARM_ERROR, None
+            raise RuntimeError(f"the kernel warm-up failed: {type(err).__name__}: {err}") from err
         if _LIB is None:
             lib = ctypes.CDLL(str(build(verbose=verbose)))
             for name, argtypes in SIGNATURES.items():
@@ -131,6 +146,33 @@ def kernel_lib(verbose: bool = False) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def warm(device, first_use=None) -> threading.Thread:
+    """Start the kernels' first-use work for the CUDA `device` in a
+    daemon thread and return it: build the library (or find it under
+    `build/kernels/`) and load it, create the device's CUDA context,
+    then run `first_use()` (the caller's small run of its routes, which
+    loads the kernels and the torch code they need) and synchronize. A
+    verify that needs the library meanwhile waits on `kernel_lib`'s lock
+    rather than start a second build. An error is logged and raised by
+    the next `kernel_lib` call. An exiting interpreter waits for the
+    thread (`utils/shutdown.py`)."""
+
+    def _run() -> None:
+        global _WARM_ERROR
+        try:
+            kernel_lib()
+            torch.zeros(1, device=device)
+            if first_use is not None:
+                first_use()
+            torch.cuda.synchronize(device)
+        except Exception as e:
+            kv(logger("kernels"), logging.ERROR, "kernel warm-up failed", error=f"{type(e).__name__}: {e}"[:200])
+            with _LOCK:
+                _WARM_ERROR = e
+
+    return shutdown.start_thread(_run, "warm-kernels")
 
 
 def stream_ptr(device) -> int:

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from tendermint_tpu_torch.device import resolve_device
+from tendermint_tpu_torch.utils import shutdown
 
 # -- constants ---------------------------------------------------------------
 
@@ -261,6 +262,9 @@ def fe_is_zero(a):
 
 def _sq_n(x, n):
     for _ in range(n):
+        # the longest run of steps in a table build or a plain verify:
+        # a background thread stops here when asked (`utils/shutdown.py`)
+        shutdown.check()
         x = fe_sq(x)
     return x
 

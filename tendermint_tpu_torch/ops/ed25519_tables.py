@@ -70,6 +70,7 @@ from tendermint_tpu_torch.ops.ed25519_kernel import (
     pt_double,
     pt_neg,
 )
+from tendermint_tpu_torch.utils import shutdown
 
 A_WINDOW = 4  # per-validator tables: 64 windows x 16 entries
 A_NWIN = 64
@@ -314,13 +315,15 @@ def _build_tables_chunk(pub: torch.Tensor):
     entry sees the same sequence of field operations as in the JAX
     build, in 256 + 15 sequential point operations instead of 64 x 19.
     Columns of invalid encodings hold identity entries, as in
-    `host_build_key_tables`.
+    `host_build_key_tables`. Between steps (and in the squaring chains)
+    it stops with `ShuttingDown` when asked (`utils/shutdown.py`).
     """
     m = pub.shape[0]
     a_pt, ok = pt_decompress(pub)
     base = pt_neg(a_pt)  # tables hold multiples of -A
     bases = []
     for w in range(A_NWIN):
+        shutdown.check()
         bases.append(base)
         if w + 1 < A_NWIN:
             for _ in range(A_WINDOW):
@@ -329,6 +332,7 @@ def _build_tables_chunk(pub: torch.Tensor):
     e = identity_point((A_NWIN, m), pub.device)
     entries = [e]
     for _ in range(15):
+        shutdown.check()
         e = pt_add(e, wb)
         entries.append(e)
     ex, ey, ez = (

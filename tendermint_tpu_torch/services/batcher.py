@@ -45,6 +45,7 @@ import numpy as np
 
 from tendermint_tpu_torch.services.verifier import BatchVerifier, Triple
 from tendermint_tpu_torch.telemetry import metrics as _metrics
+from tendermint_tpu_torch.utils import shutdown
 from tendermint_tpu_torch.utils.lockrank import ranked_lock
 
 CACHE_SIZE = int(os.environ.get("TENDERMINT_TPU_VERIFY_CACHE_SIZE", "65536"))
@@ -491,25 +492,36 @@ class VerifyCoalescer:
                 return
             handle, batch = item
             try:
-                mask = handle.result()
-            except BaseException as e:
+                # the join copies the verdict back: torch work that an
+                # exiting interpreter waits for (`utils/shutdown.py`)
+                with shutdown.section():
+                    self._scatter(handle, batch)
+            except shutdown.ShuttingDown as e:
                 for req in batch:
                     req.error = e
                     req.event.set()
-                continue
-            at = 0
-            cache = self._cache
+
+    def _scatter(self, handle, batch: list[_Request]) -> None:
+        try:
+            mask = handle.result()
+        except BaseException as e:
             for req in batch:
-                k = len(req.novel)
-                verdicts = mask[at : at + k]
-                at += k
-                for pos, key, ok in zip(req.novel_pos, req.novel_keys, verdicts):
-                    ok = bool(ok)
-                    req.out[pos] = ok
-                    if ok and cache is not None and key is not None:
-                        cache.add(key)  # positives only
-                req.novel = req.novel_keys = None  # drop payloads promptly
+                req.error = e
                 req.event.set()
+            return
+        at = 0
+        cache = self._cache
+        for req in batch:
+            k = len(req.novel)
+            verdicts = mask[at : at + k]
+            at += k
+            for pos, key, ok in zip(req.novel_pos, req.novel_keys, verdicts):
+                ok = bool(ok)
+                req.out[pos] = ok
+                if ok and cache is not None and key is not None:
+                    cache.add(key)  # positives only
+            req.novel = req.novel_keys = None  # drop payloads promptly
+            req.event.set()
 
 
 class CoalescingVerifier(BatchVerifier):
@@ -577,12 +589,15 @@ class CoalescingVerifier(BatchVerifier):
         if hasattr(self.inner, "prebuild"):
             self.inner.prebuild(pubkeys)
 
-    def warm_kernels(self) -> None:
+    def warm_kernels(self):
         if hasattr(self.inner, "warm_kernels"):
-            self.inner.warm_kernels()
+            return self.inner.warm_kernels()
+        return None
 
     def close(self) -> None:
         self.coalescer.close()
+        if hasattr(self.inner, "close"):
+            self.inner.close()
 
     # -- flat triples ------------------------------------------------------
 

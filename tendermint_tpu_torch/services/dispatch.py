@@ -40,6 +40,7 @@ import time
 from typing import Callable
 
 from tendermint_tpu_torch.telemetry import metrics as _metrics
+from tendermint_tpu_torch.utils import shutdown
 from tendermint_tpu_torch.utils.lockrank import ranked_lock
 
 # In-flight launches per queue (submitted, not yet joined). 2 is the
@@ -104,7 +105,10 @@ class VerifyHandle:
             self._launched_at - self._submitted_at
         )
         try:
-            self._launched = self._launch_fn()
+            # torch work that an exiting interpreter waits for
+            # (`utils/shutdown.py`); refused once it is exiting
+            with shutdown.section():
+                self._launched = self._launch_fn()
         except BaseException as e:  # delivered at result(), never lost
             self._launch_exc = e
         finally:

@@ -372,9 +372,14 @@ class ResilientVerifier(BatchVerifier):
         if hasattr(self.primary, "prebuild") and self.breaker.state == "closed":
             self.primary.prebuild(pubkeys)
 
-    def warm_kernels(self) -> None:
+    def warm_kernels(self):
         if hasattr(self.primary, "warm_kernels") and self.breaker.state == "closed":
-            self.primary.warm_kernels()
+            return self.primary.warm_kernels()
+        return None
+
+    def close(self) -> None:
+        if hasattr(self.primary, "close"):
+            self.primary.close()
 
 
 class ResilientTreeHasher(TreeHasher):

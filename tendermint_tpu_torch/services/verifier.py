@@ -51,6 +51,7 @@ from tendermint_tpu_torch.ops.ed25519_tables import (
     verify_tables_kernel,
 )
 from tendermint_tpu_torch.telemetry import metrics as _metrics
+from tendermint_tpu_torch.utils import shutdown
 from tendermint_tpu_torch.utils.circuit import CircuitBreaker
 from tendermint_tpu_torch.utils.fail import InjectedDeviceFault, device_fail_point
 from tendermint_tpu_torch.utils.log import kv, logger
@@ -220,6 +221,9 @@ class TableBatchVerifier(DeviceBatchVerifier):
         self._tables: "OrderedDict[bytes, tuple]" = OrderedDict()
         self._cache_size = cache_size
         self._cache_lock = threading.RLock()
+        # key -> the thread of a `prebuild` still running; `close` stops them
+        self._prebuilds: dict[bytes, threading.Thread] = {}
+        self._closed = threading.Event()
         # Table construction has its own breaker: it is separate work
         # from the verify kernels and can be sick on its own. N build
         # faults stop the device builds; small sets then build on the
@@ -334,11 +338,64 @@ class TableBatchVerifier(DeviceBatchVerifier):
     def prebuild(self, pubkeys) -> None:
         """Warm the table cache for a validator set in the background —
         called when a rotation is decided, so the first verify against
-        the next set doesn't stall on a build."""
+        the next set doesn't stall on a build. At most one build a set
+        runs at a time; an exiting interpreter stops it between steps
+        (`utils/shutdown.py`)."""
         pubs = tuple(bytes(pk) for pk in pubkeys)
-        if self._cache_key(pubs) in self._tables:
-            return
-        threading.Thread(target=lambda: self.tables_for(pubs), daemon=True).start()
+        key = self._cache_key(pubs)
+        with self._cache_lock:
+            if key in self._tables or key in self._prebuilds or self._closed.is_set():
+                return
+            self._prebuilds[key] = shutdown.start_thread(
+                self._prebuild, "table-prebuild", key, pubs, stop=self._closed
+            )
+
+    def _prebuild(self, key: bytes, pubs: tuple[bytes, ...]) -> None:
+        try:
+            self.tables_for(pubs)
+        except TableBuildError as e:  # the verify answers with host crypto
+            kv(logger("resilient"), logging.WARNING, "table prebuild unavailable", error=str(e))
+        finally:
+            with self._cache_lock:
+                self._prebuilds.pop(key, None)
+
+    def close(self) -> None:
+        """Stop the builds `prebuild` started, between two of their
+        steps, and wait for them; no later `prebuild` starts one (a
+        node's verifier lives for the process; tests close theirs)."""
+        self._closed.set()
+        with self._cache_lock:
+            threads = list(self._prebuilds.values())
+        for t in threads:
+            t.join(timeout=shutdown.EXIT_WAIT_S)
+
+    def warm_kernels(self):
+        """Do the kernels' first-use work in one background thread,
+        which is returned, so that the first verify does not pay for it;
+        the node calls this at start. The thread builds or finds the
+        kernel library, loads it, creates the CUDA context and runs each
+        route once on dummy lanes (`_first_use`), as the JAX package's
+        warm-up runs one dummy table build. On the CPU there is nothing
+        to warm: returns None at once."""
+        if self.device.type != "cuda":
+            return None
+        from tendermint_tpu_torch.ops import _build
+
+        return _build.warm(self.device, self._first_use)
+
+    def _first_use(self) -> None:
+        """One small run of every route on dummy lanes: a table build of
+        8 identity keys, a commit through the entries chain, a stack of 8
+        through the fused chain, 8 flat lanes through the ladder; each
+        ends in the finish. Their verdicts are discarded."""
+        keys = np.zeros((8, 32), dtype=np.uint8)
+        keys[:, 0] = 1  # identity encodings: decompress cleanly
+        tables, _ok = build_key_tables(keys, device=self.device)
+        for k, impl in ((1, "entries"), (8, "fused")):
+            zero = torch.zeros((8 * k, 32), dtype=torch.uint8, device=self.device)
+            verify_tables_kernel(tables, zero, zero, zero, impl=impl)
+        pubs = [bytes(keys[0])] * 8
+        materialize_batch_verify(launch_batch_verify(pubs, [b""] * 8, [bytes(64)] * 8, device=self.device))
 
     def verify_commits(
         self,
