@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's ed25519 verify path and Merkle hash
 plane once on the card.
 
-    python3 chip_smoke.py            # one CUDA card, about 2-4 minutes
+    python3 chip_smoke.py            # one CUDA card, about 2-5 minutes
 
 Phases (inputs made from --seed with numpy, signed with the port's
 pure-Python RFC 8032 module, messages as long as a canonical vote's sign
@@ -57,6 +57,22 @@ bytes):
    on an inexact mask, a missing launch, or a primary failure or host
    fallback it did not inject. Each step's launches stand on its own
    line; the kernels line keeps the bare phases' counts;
+7. mesh: the same work over four shards (`cuda:0..3` with four cards,
+   else `cuda:0` four times: the times then measure the choreography,
+   not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
+   (2,500 table columns and one `madd_chain_entries` and one finish
+   launch a shard), the window (250 columns, one `madd_chain_fused` a
+   shard), the flat batch through `ShardedBatchVerifier` (1,024 lanes a
+   shard on `ladder`) and its power tally against the host sum, 64 zero
+   rows (all false, tally 0), `data_hash` through `TreeHasher(mesh=)`
+   (one leaf launch a shard, roots bit-equal to phase 5's); a fault
+   drill (shard 2 out: the flat batch on 3 shards, the window and the
+   10k commit on the one-card path; the full mesh back after the
+   re-probe window; every shard out on 512 validators: the breaker's
+   host answer) and the multi-host seam in one process. Each step times
+   a cold call and the median of 3 beside the bare phase's, and fails on
+   an inexact mask, root or tally, a kernel not launched once a shard,
+   or a shard fault, re-mesh or fallback it did not inject;
 1. kernel vs plain: each kernel against its plain torch version on the
    card, on the inputs its phase gave it (the entries chain also at
    4096 lanes and at 3 commits of the fast-sync set), compared exactly
@@ -1389,30 +1405,368 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     return rep
 
 
-def run(args) -> dict:
+# -- phase 7: the mesh ---------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_REPS = 3  # timed calls a step, median
+MESH_REPROBE_S = 0.2
+MESH_EXHAUST_KEYS = 512
+
+
+def mesh_devices() -> tuple[list, str]:
+    """Four shards: one a card when four cards are visible, else all four
+    on the first card (the times then measure the choreography, not a
+    speed-up)."""
+    import torch
+
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        return [torch.device("cuda", i) for i in range(MESH_SHARDS)], f"cuda:0..{MESH_SHARDS - 1}, one shard a card"
+    return [torch.device("cuda", 0)] * MESH_SHARDS, (
+        f"cuda:0 x {MESH_SHARDS}: {MESH_SHARDS} shards on one card; the times measure the choreography, "
+        "not a speed-up"
+    )
+
+
+MESH_COUNTERS = {
+    "shard_faults": ("tendermint_mesh_shard_faults_total", {}),
+    "shrinks": ("tendermint_mesh_remesh_total", {"direction": "shrink"}),
+    "restores": ("tendermint_mesh_remesh_total", {"direction": "restore"}),
+    "verify_fallbacks": ("tendermint_device_fallback_calls_total", {"kind": "verify"}),
+    "hash_fallbacks": ("tendermint_device_fallback_calls_total", {"kind": "hash"}),
+}
+
+
+class MeshHealth:
+    """The mesh's shard faults and re-meshes and the resilient layers'
+    host fallbacks, read before and after each step: a step fails on any
+    it did not inject."""
+
+    def __init__(self):
+        self.base = self.read()
+
+    @staticmethod
+    def read() -> dict:
+        return {k: _counter(name, **labels) for k, (name, labels) in MESH_COUNTERS.items()}
+
+    def check(self, what: str, **expect) -> None:
+        now = self.read()
+        moved = {k: now[k] - self.base[k] for k in now if now[k] != self.base[k]}
+        if moved != expect:
+            raise AssertionError(f"mesh {what}: counters moved {moved}, expected {expect}")
+        self.base = now
+
+
+def device_state(devices) -> dict:
+    """The per-device state the wrappers keep, after the mesh ran: a
+    finish scratch word a (card, stream) and the constants a card, on
+    every card of the mesh."""
+    from tendermint_tpu_torch.ops.ed25519_kernel import _CONSTS
+    from tendermint_tpu_torch.ops.ed25519_tables import _FINISH_SCRATCH
+
+    cards = {d.index for d in devices}
+    scratch = sorted(k for k in _FINISH_SCRATCH if k[0] in cards)
+    consts = sorted({k[-1] for k in _CONSTS if isinstance(k[-1], str) and k[-1].startswith("cuda")})
+    if {k[0] for k in scratch} != cards or any(str(d) not in consts for d in devices):
+        raise AssertionError(f"mesh: finish scratch words {scratch}, constants on {consts}, cards {sorted(cards)}")
+    return {"finish_scratch": [list(k) for k in scratch], "constants_on": consts}
+
+
+def mesh_stage_times(verifier, pubs, commits, sync) -> dict:
+    """Seconds of each stage of one call of the table path over the
+    mesh, every card synchronised after each: host prep (the lanes and
+    their mask), the shard-major reorder, the step (copies in, the
+    kernels a shard, the tally), the copy back with the inverse
+    reorder."""
+    from tendermint_tpu_torch.ops.ed25519_tables import prepare_commit_lanes
+    from tendermint_tpu_torch.parallel.mesh import (
+        gather_verdicts,
+        shard_lanes_validator_major,
+        unshard_lanes_validator_major,
+    )
+
+    out = {}
+    clock = [time.perf_counter()]
+
+    def mark(name):
+        sync()
+        now = time.perf_counter()
+        out[name] = now - clock[0]
+        clock[0] = now
+
+    n, k = len(pubs), len(commits)
+    devices = verifier.mesh.active_devices()
+    tables, key_ok = verifier._tables_for_mesh(tuple(pubs), devices)
+    mark("placement_lookup_s")
+    s, h, r, pre = prepare_commit_lanes(pubs, commits)
+    lane_ok = pre & np.tile(key_ok, k)
+    mark("host_prep_s")
+    lanes = shard_lanes_validator_major([s, h, r, lane_ok, np.ones(k * n, dtype=np.int32)], n, len(devices))
+    mark("reorder_s")
+    ok, _total = verifier.mesh.tables_step()(tables, *lanes)
+    mark("step_s")
+    unshard_lanes_validator_major(gather_verdicts(ok), n, len(devices))
+    mark("copy_back_s")
+    return out
+
+
+def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
+    """Phase 7: the main path's work through the mesh classes over
+    MESH_SHARDS shards (`mesh_devices`): the 10k commit through
+    `ShardedTableBatchVerifier` (N/4 table columns and the entries chain
+    a shard), the window (the fused chain a shard), the flat batch
+    through `ShardedBatchVerifier` (1,024 lanes a shard on the ladder)
+    and its tally, 64 zero rows, the data_hash through
+    `TreeHasher(mesh=)`; a fault drill (shard 2 out and back, every shard
+    out on a 512-validator set); the multi-host seam in one process.
+    `bare` is the bare phases' table backend, whose calls are timed in
+    turns with the mesh's; `commit`, `window`, `flat` are the earlier
+    phases' inputs with their expected masks and bare medians, `hashed`
+    the hash phase's block, roots and medians. Each step's launches are
+    zeroed just before each of its mesh calls and read just after, and
+    stand on its own line only: the kernels line keeps the bare phases'
+    counts."""
+    import hashlib
+
+    import torch
+
+    from tendermint_tpu_torch.ops.ed25519_kernel import bucket_size, prepare_batch
+    from tendermint_tpu_torch.parallel import distributed as dist
+    from tendermint_tpu_torch.parallel import mesh as mesh_mod
+    from tendermint_tpu_torch.parallel.mesh import BATCH_AXIS, MeshManager, gather_verdicts
+    from tendermint_tpu_torch.services.hasher import TreeHasher
+    from tendermint_tpu_torch.services.resilient import ResilientVerifier
+    from tendermint_tpu_torch.services.verifier import ShardedBatchVerifier, ShardedTableBatchVerifier
+    from tendermint_tpu_torch.utils import fail
+
+    devices, layout = mesh_devices()
+    rep: dict = {"devices": [str(d) for d in devices], "layout": layout}
+
+    def sync():
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+    mesh = MeshManager(devices=devices, reprobe_s=MESH_REPROBE_S)
+    tv = ShardedTableBatchVerifier(mesh=mesh)
+    fv = ShardedBatchVerifier(mesh=mesh)
+    health = MeshHealth()
+    placements = "tendermint_table_device_cache_total"
+    fail.clear_device_faults()
+
+    # 0. the warm-up over every card of the mesh, then the 10k table build
+    t0 = time.perf_counter()
+    thread = tv.warm_kernels()
+    thread.join(timeout=300)
+    cold = [d for d in dict.fromkeys(devices) if d.type == "cuda" and d not in mesh_mod._WARMED]
+    if thread.is_alive() or cold:
+        raise AssertionError(f"mesh warm: the thread is alive: {thread.is_alive()}, cards not warmed: {cold}")
+    rep["warm_s"] = time.perf_counter() - t0
+    pubs, commits, expected, bare_s = commit
+    rep["table_build_s"] = timed(lambda: tv.tables_for(tuple(pubs)), sync)
+    log({"phase": "mesh", "step": "setup", **rep})
+
+    def sharded(what, fn, check, launches_each: dict, bare_fn, bare: float) -> dict:
+        """One cold call, then MESH_REPS timed calls in turns with the
+        bare backend's call on the same work, each checked; each mesh call
+        launches `launches_each` (one a shard for a sharded kernel)."""
+        outs = []
+        cold_s = timed(lambda: outs.append(fn()), sync)
+        bare_fn()  # its cold call, untimed
+        c = dict.fromkeys(counts(), 0)
+        warm, here = [], []
+        for _ in range(MESH_REPS):
+            reset_counts()
+            warm.append(timed(lambda: outs.append(fn()), sync))
+            c = {name: c[name] + v for name, v in counts().items()}
+            here.append(timed(bare_fn, sync))
+        for out in outs:
+            check(out)
+        want = {name: each * MESH_REPS for name, each in launches_each.items()}
+        if any(c[name] != v for name, v in want.items()):
+            raise AssertionError(f"mesh {what}: launches {c} in {MESH_REPS} calls, expected {want}")
+        row = {"cold_s": cold_s, "s_median": statistics.median(warm), "s": warm,
+               "bare_s_median_in_turns": statistics.median(here), "bare_s_in_turns": here,
+               "bare_s_median": bare, "launches": c}
+        log({"phase": "mesh", "step": what, **row})
+        return row
+
+    def mask_of(what, expected_mask):
+        return lambda got: check_mask(f"mesh {what}", got, expected_mask)
+
+    # 1. the 10k commit: N/4 columns a shard, the entries chain a shard
+    n = len(pubs)
+    miss0, hit0 = _counter(placements, result="miss"), _counter(placements, result="hit")
+    rep["commit"] = sharded("commit", lambda: tv.verify_commits(pubs, commits), mask_of("commit", expected[None, :]),
+                            {"madd_chain_entries": MESH_SHARDS, "finish_encode_compare": MESH_SHARDS},
+                            lambda: bare.verify_commits(pubs, commits), bare_s)
+    placed = tv._sharded_tables[(tv._cache_key(tuple(pubs)), mesh.active_devices())]
+    rep["commit"]["placed_bytes"] = [t.numel() * t.element_size() for t in placed]
+    if [t.shape[3] for t in placed] != [n // MESH_SHARDS] * MESH_SHARDS or [t.device for t in placed] != devices:
+        raise AssertionError(f"mesh commit: placed slices {[(tuple(t.shape), str(t.device)) for t in placed]}")
+    moved = (_counter(placements, result="miss") - miss0, _counter(placements, result="hit") - hit0)
+    if moved != (1, MESH_REPS):
+        raise AssertionError(f"mesh commit: placement cache (misses, hits) {moved}, expected (1, {MESH_REPS})")
+    health.check("commit")
+
+    # 2. the fast-sync window: N/4 columns a shard, the fused chain a shard
+    pubs3, commits3, expected3, bare3 = window
+    rep["window"] = sharded("window", lambda: tv.verify_commits(pubs3, commits3), mask_of("window", expected3),
+                            {"madd_chain_fused": MESH_SHARDS, "finish_encode_compare": MESH_SHARDS},
+                            lambda: bare.verify_commits(pubs3, commits3), bare3)
+    rep["window"]["commits_per_s"] = len(commits3) / rep["window"]["s_median"]
+    health.check("window")
+
+    # 3. the flat batch: 1,024 lanes a shard on the ladder, then its tally
+    triples, expected4, bare4 = flat
+    nf = len(triples)
+    if bucket_size(-(-nf // MESH_SHARDS)) * MESH_SHARDS != nf:
+        raise AssertionError(f"mesh flat: {nf} lanes do not fill {MESH_SHARDS} shard buckets")
+    rep["flat"] = sharded("flat", lambda: fv.verify_batch(triples), mask_of("flat", expected4),
+                          {"ladder": MESH_SHARDS, "finish_encode_compare": MESH_SHARDS},
+                          lambda: bare.verify_batch(triples), bare4)
+    rep["flat"]["verifies_per_s"] = nf / rep["flat"]["s_median"]
+    powers = np.random.default_rng(inp.seed).integers(1, 1000, nf).astype(np.int32)
+    mask, tally = fv.verify_batch_with_powers(triples, powers)
+    check_mask("mesh flat tally", mask, expected4)
+    want_tally = int(powers[expected4].sum())
+    if tally != want_tally:
+        raise AssertionError(f"mesh flat tally: {tally}, the host sum over the expected mask is {want_tally}")
+    rep["flat"]["tally"] = tally
+    health.check("flat")
+
+    # 4. zero rows verify false and tally 0 (the padding relies on it)
+    zeros = np.zeros((64, 32), dtype=np.uint8)
+    reset_counts()
+    ok, total = mesh.verify_step()(zeros, zeros, zeros, zeros, np.zeros(64, dtype=np.int32))
+    zero_ok = gather_verdicts(ok)
+    c = counts()
+    if zero_ok.shape != (64,) or zero_ok.any() or int(total) != 0 or c["ladder"] != MESH_SHARDS:
+        raise AssertionError(f"mesh zero rows: {int(zero_ok.sum())} true of {zero_ok.shape}, tally {int(total)}, "
+                             f"{c['ladder']} ladder launches")
+    rep["zero_rows"] = {"rows": 64, "true": 0, "tally": 0, "launches": c}
+    log({"phase": "mesh", "step": "zero_rows", **rep["zero_rows"]})
+
+    # 5. data_hash through TreeHasher(mesh=): the leaf pass a shard, the
+    # levels on the first card; roots bit-equal to phase 5's
+    txs, roots, bare_hash = hashed
+    levels = len(txs).bit_length() - 1
+    rep["data_hash"] = {}
+    for algo in ("sha256", "ripemd160"):
+        th = TreeHasher(algo=algo, mesh=mesh)
+        one = TreeHasher(algo=algo, device=devices[0])
+
+        def same_root(got, algo=algo):
+            if got != roots[algo]:
+                raise AssertionError(f"mesh data_hash {algo}: the root differs from phase 5's")
+
+        rep["data_hash"][algo] = sharded(f"data_hash {algo}", lambda: th.root_from_items(txs), same_root,
+                                         {LEAF_KERNEL[algo]: MESH_SHARDS, "merkle_level": levels},
+                                         lambda: one.root_from_items(txs), bare_hash[algo])
+    reset_counts()
+    leaves = TreeHasher(mesh=mesh).leaf_hashes(txs)
+    c = counts()
+    if leaves != [hashlib.sha256(b"\x00" + tx).digest() for tx in txs] or c["sha256_masked"] != MESH_SHARDS:
+        raise AssertionError(f"mesh leaf_hashes: differ from hashlib or launched {c['sha256_masked']} times")
+    health.check("data_hash")
+    rep["stages"] = {"commit": mesh_stage_times(tv, pubs, commits, sync),
+                     "window": mesh_stage_times(tv, pubs3, commits3, sync)}
+    log({"phase": "mesh", "step": "stages", **rep["stages"]})
+
+    rep["per_device_state"] = device_state(devices)
+
+    # 6. the fault drill: shard 2 out; the flat batch on the 3 survivors,
+    # the window and the 10k commit on the one-card path (N % 3 != 0);
+    # the full mesh back after the re-probe window
+    drill: dict = {}
+    fail.set_device_fault("shard2")
+    reset_counts()
+    check_mask("mesh faulted flat", fv.verify_batch(triples), expected4)
+    c_flat = counts()
+    if mesh.active_indices() != (0, 1, 3) or c_flat["ladder"] != MESH_SHARDS - 1:
+        raise AssertionError(f"mesh faults: active {mesh.active_indices()}, {c_flat['ladder']} ladder launches")
+    health.check("shard fault", shard_faults=1, shrinks=1)
+    reset_counts()
+    check_mask("mesh faulted window", tv.verify_commits(pubs3, commits3), expected3)
+    c_win = counts()
+    reset_counts()
+    check_mask("mesh faulted commit", tv.verify_commits(pubs, commits), expected[None, :])
+    c_commit = counts()
+    if c_win["madd_chain_fused"] != 1 or c_commit["madd_chain_entries"] != 1:
+        raise AssertionError(f"mesh faults: the one-card path launched {c_win}, {c_commit}")
+    health.check("one-card path")
+    fail.clear_device_faults()
+    time.sleep(MESH_REPROBE_S * 1.5)
+    reset_counts()
+    check_mask("mesh restored flat", fv.verify_batch(triples), expected4)
+    c_back = counts()
+    if mesh.n_active != MESH_SHARDS or c_back["ladder"] != MESH_SHARDS:
+        raise AssertionError(f"mesh faults: {mesh.n_active} active after the re-probe, {c_back['ladder']} launches")
+    health.check("restore", restores=1)
+    drill["shard2"] = {"flat_launches": c_flat, "window_launches": c_win, "commit_launches": c_commit,
+                       "restored_launches": c_back}
+
+    # every shard out on a 512-validator set through the flat mesh lanes
+    # (the table path would leave the mesh for one card at the first
+    # fault, 512 % 3 != 0): MeshExhaustedError reaches the breaker, the
+    # host answers exactly, no verify kernel launches
+    p5, m5, s5, e5 = make_commit(inp, list(range(MESH_EXHAUST_KEYS)), {"forged": 7})  # all present: >= 512 lanes
+    mesh5 = MeshManager(devices=devices, reprobe_s=60.0)
+    rv = ResilientVerifier(ShardedBatchVerifier(mesh=mesh5), max_retries=0)
+    for i in range(MESH_SHARDS):
+        fail.set_device_fault(f"shard{i}")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = rv.verify_commits(p5, [(m5, s5)])
+    host_s = time.perf_counter() - t0
+    c = counts()
+    fail.clear_device_faults()
+    check_mask("mesh exhausted", out, e5[None, :])
+    snap = rv.snapshot()
+    if (mesh5.n_active, snap["fallback_calls"], snap["total_failures"]) != (0, 1, 1) or sum(c[x] for x in VERIFY_KERNELS):
+        raise AssertionError(f"mesh exhaustion: active {mesh5.n_active}, breaker {snap}, launches {c}")
+    health.check("exhaustion", shard_faults=MESH_SHARDS, shrinks=MESH_SHARDS - 1, verify_fallbacks=1)
+    drill["exhausted"] = {"validators": MESH_EXHAUST_KEYS, "host_s": host_s, "breaker": snap}
+    rep["faults"] = drill
+    log({"phase": "mesh", "step": "faults", **drill})
+
+    # 7. the multi-host seam in one process, over every visible card
+    dist.initialize()
+    if dist.process_info() != (0, 1):
+        raise AssertionError(f"mesh seam: process_info() {dist.process_info()}")
+    gm = dist.global_batch_mesh(devices[0])
+    pub, r, s, h, pre = prepare_batch(*zip(*triples))
+    cut = nf - nf % gm.n_active
+    placed = [dist.host_local_to_global(gm, BATCH_AXIS, a[:cut]) for a in (pub, r, s, h, powers * pre)]
+    reset_counts()
+    ok, total = gm.verify_step()(*placed)
+    c = counts()
+    check_mask("mesh seam", gather_verdicts(ok) & pre[:cut], expected4[:cut])
+    want_tally = int(powers[:cut][expected4[:cut]].sum())
+    if int(total) != want_tally or c["ladder"] != gm.n_active:
+        raise AssertionError(f"mesh seam: tally {int(total)} (host {want_tally}), {c['ladder']} launches "
+                             f"over {gm.n_active} cards")
+    rep["seam"] = {"cards": gm.n_active, "lanes": cut, "tally": int(total), "launches": c}
+    log({"phase": "mesh", "step": "seam", **rep["seam"]})
+    tv.close()
+    return rep
+
+
+def environment() -> dict:
+    """Phase 0: the card's name and power limit, the versions, and the
+    kernels' build (ptxas register and spill lines)."""
     import torch
 
     from tendermint_tpu_torch.ops import _build
-    from tendermint_tpu_torch.ops import ed25519_ladder as lad
-    from tendermint_tpu_torch.ops import ed25519_tables as tab
-    from tendermint_tpu_torch.ops.ed25519_kernel import prepare_batch
-    from tendermint_tpu_torch.services.verifier import default_verifier
 
-    sync = torch.cuda.synchronize
-    report: dict = {"args": vars(args)}
-
-    # -- phase 0: environment and build --------------------------------------
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     clock_mhz = sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
     nvcc_v = sh([_build.nvcc_path(), "--version"]).splitlines()
-    props = torch.cuda.get_device_properties(0)
     env = {
         "nvidia_smi": smi,
         "clocks_max_sm_mhz": clock_mhz,
         "torch": torch.__version__,
         "torch_cuda": torch.version.cuda,
         "nvcc": nvcc_v[-1] if nvcc_v else "",
-        "sms": props.multi_processor_count,
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+        "cards": torch.cuda.device_count(),
     }
     t0 = time.perf_counter()
     _build.kernel_lib(verbose=True)
@@ -1424,9 +1778,93 @@ def run(args) -> dict:
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln
     ]
     log({"phase": 0, **env})
-    report["env"] = env
-    clock_hz = float(clock_mhz.split()[0]) * 1e6
-    sms = props.multi_processor_count
+    return env
+
+
+def commit_inputs(inp: Inputs, n: int):
+    """Phase 2's commit: (pubs, msgs, sigs, expected) over keys 0..n-1."""
+    plant = {"forged": 11, "absent": n // 4, "s_ge_l": n // 3, "bad_key": n // 2, "short_sig": n - 1}
+    return make_commit(inp, list(range(n)), plant)
+
+
+def window_inputs(inp: Inputs, ns: int, k: int):
+    """Phase 3's window: (pubs, k commits, (k, ns) expected)."""
+    commits, expected = [], []
+    for ci in range(k):
+        plant = {}
+        if ci == 3:
+            plant["forged"] = 5
+        if ci == 5:
+            plant["absent"] = 6
+        if ci == 7:
+            plant["s_ge_l"] = 7
+        if ci == 9:
+            plant["short_sig"] = 8
+        plant["bad_key"] = 17  # the same validator in every commit
+        pubs, m, s, e = make_commit(inp, list(range(ns)), plant)
+        commits.append((m, s))
+        expected.append(e)
+    return pubs, commits, np.stack(expected)
+
+
+def flat_inputs(inp: Inputs, nf: int):
+    """Phase 4's flat batch: (pubs, msgs, sigs, expected) of distinct keys."""
+    pubs, msgs, sigs, expected = make_commit(
+        inp,
+        list(range(nf)),
+        {"forged": 1, "absent": 2, "s_ge_l": 3, "bad_key": 4, "short_sig": 5},
+    )
+    # a flat batch has no absent slot: the absent vote arrives as an
+    # empty message and signature
+    msgs[2], sigs[2] = b"", b""
+    return pubs, msgs, sigs, expected
+
+
+def run_mesh_only(args) -> dict:
+    """`--mesh-only`: phase 0, then phase 7 alone on the inputs a full
+    run makes from the same seed (the bare phases' medians are not
+    measured; the bare backend's calls timed in turns are the
+    comparison). For a call on several cards, which need run nothing
+    else."""
+    import torch
+
+    from tendermint_tpu_torch.merkle import simple as host
+    from tendermint_tpu_torch.services.verifier import TableBatchVerifier
+
+    report: dict = {"args": vars(args), "env": environment()}
+    inp = Inputs(args.seed, args.validators)
+    pubs2, msgs2, sigs2, exp2 = commit_inputs(inp, args.validators)
+    pubs3, commits3, exp3 = window_inputs(inp, args.sync_validators, args.window)
+    pubs4, msgs4, sigs4, exp4 = flat_inputs(inp, args.flat)
+    txs = byte_items(np.random.default_rng(args.seed + 5), np.full(TXS, TX_BYTES))
+    roots = {algo: host.simple_hash_from_byte_slices(txs, algo) for algo in LEAF_KERNEL}
+    bare = TableBatchVerifier(device=torch.device("cuda", 0))
+    report["mesh"] = run_mesh(
+        inp, bare,
+        commit=(pubs2, [(msgs2, sigs2)], exp2, None),
+        window=(pubs3, commits3, exp3, None),
+        flat=(list(zip(pubs4, msgs4, sigs4)), exp4, None),
+        hashed=(txs, roots, dict.fromkeys(roots)),
+    )
+    bare.close()
+    return report
+
+
+def run(args) -> dict:
+    import torch
+
+    from tendermint_tpu_torch.ops import ed25519_ladder as lad
+    from tendermint_tpu_torch.ops import ed25519_tables as tab
+    from tendermint_tpu_torch.ops.ed25519_kernel import prepare_batch
+    from tendermint_tpu_torch.services.verifier import default_verifier
+
+    sync = torch.cuda.synchronize
+    report: dict = {"args": vars(args)}
+
+    # -- phase 0: environment and build --------------------------------------
+    report["env"] = env = environment()
+    clock_hz = float(env["clocks_max_sm_mhz"].split()[0]) * 1e6
+    sms = env["sms"]
 
     inp = Inputs(args.seed, args.validators)
     log({"phase": "keys", "n": args.validators, "keygen_s": inp.keygen_s})
@@ -1439,9 +1877,8 @@ def run(args) -> dict:
 
     # -- phase 2: consensus commit, N validators, K = 1 -----------------------
     n = args.validators
-    plant = {"forged": 11, "absent": n // 4, "s_ge_l": n // 3, "bad_key": n // 2, "short_sig": n - 1}
     t0 = time.perf_counter()
-    pubs2, msgs2, sigs2, exp2 = make_commit(inp, list(range(n)), plant)
+    pubs2, msgs2, sigs2, exp2 = commit_inputs(inp, n)
     sign2_s = time.perf_counter() - t0
     reset_counts()
     build_s = timed(lambda: verifier.tables_for(tuple(pubs2)), sync)
@@ -1475,24 +1912,8 @@ def run(args) -> dict:
 
     # -- phase 3: fast-sync window, N_sync validators, K = window ------------
     ns, k = args.sync_validators, args.window
-    keys3 = list(range(ns))
-    commits3, exp3 = [], []
     t0 = time.perf_counter()
-    for ci in range(k):
-        plant3 = {}
-        if ci == 3:
-            plant3["forged"] = 5
-        if ci == 5:
-            plant3["absent"] = 6
-        if ci == 7:
-            plant3["s_ge_l"] = 7
-        if ci == 9:
-            plant3["short_sig"] = 8
-        plant3["bad_key"] = 17  # the same validator in every commit
-        pubs3, m, s, e = make_commit(inp, keys3, plant3)
-        commits3.append((m, s))
-        exp3.append(e)
-    exp3 = np.stack(exp3)
+    pubs3, commits3, exp3 = window_inputs(inp, ns, k)
     sign3_s = time.perf_counter() - t0
     reset_counts()
     got = []
@@ -1526,14 +1947,7 @@ def run(args) -> dict:
     # -- phase 4: flat batch of distinct keys ---------------------------------
     nf = args.flat
     t0 = time.perf_counter()
-    pubs4, msgs4, sigs4, exp4 = make_commit(
-        inp,
-        list(range(nf)),
-        {"forged": 1, "absent": 2, "s_ge_l": 3, "bad_key": 4, "short_sig": 5},
-    )
-    # a flat batch has no absent slot: the absent vote arrives as an
-    # empty message and signature
-    msgs4[2], sigs4[2] = b"", b""
+    pubs4, msgs4, sigs4, exp4 = flat_inputs(inp, nf)
     triples = list(zip(pubs4, msgs4, sigs4))
     sign4_s = time.perf_counter() - t0
     reset_counts()
@@ -1580,6 +1994,16 @@ def run(args) -> dict:
         flat=(triples, exp4, med4),
         hashed=(txs, bytes.fromhex(hrep["data_hash"]["sha256"]["root"]), chunks),
         reps=args.reps,
+    )
+
+    # -- phase 7: the same work over a mesh of four shards --------------------
+    report["mesh"] = run_mesh(
+        inp, verifier,
+        commit=(pubs2, commit, exp2, p2["warm_commit_s_median"]),
+        window=(pubs3, commits3, exp3, med3),
+        flat=(triples, exp4, med4),
+        hashed=(txs, {a: bytes.fromhex(d["root"]) for a, d in hrep["data_hash"].items()},
+                {a: d["warm_s_median"] for a, d in hrep["data_hash"].items()}),
     )
 
     # -- phase 1: each kernel against its plain version, then timed ----------
@@ -1737,6 +2161,8 @@ def main() -> int:
     ap.add_argument("--window", type=int, default=16, help="fast-sync commits per call")
     ap.add_argument("--flat", type=int, default=4096, help="flat batch lanes")
     ap.add_argument("--reps", type=int, default=5, help="timed kernel runs")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phase 0 and the mesh phase alone (for a call on several cards)")
     args = ap.parse_args()
 
     import torch
@@ -1750,7 +2176,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 2
     try:
-        report = run(args)
+        report = run_mesh_only(args) if args.mesh_only else run(args)
     except Exception:
         traceback.print_exc()
         return 1
@@ -1763,7 +2189,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(report["env"]["nvidia_smi"])
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in report["kernels"]]}))
+    if "kernels" in report:
+        print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in report["kernels"]]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -14,6 +14,9 @@ JAX package's pad rows (P - count per tree) are never hashed: the level
 rule reads no node outside a tree's valid prefix, and the roots are the
 same. On the CPU `merkle_level` runs `_merkle_level`, one step of the JAX
 `_forest_levels`, with the inner-node words built as in JAX.
+
+Over a mesh (`leaf_hashes_sharded`, `merkle_root_sharded`) the leaf pass
+is one launch a shard; the levels stay on the first active device.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 
 from tendermint_tpu_torch.device import resolve_device
 from tendermint_tpu_torch.merkle.simple import INNER_PREFIX, LEAF_PREFIX
+from tendermint_tpu_torch.merkle.simple import leaf_hash as host_leaf_hash
+from tendermint_tpu_torch.merkle.simple import simple_hash_from_byte_slices as host_root
 from tendermint_tpu_torch.ops._build import check, kernel_lib, stream_ptr
 from tendermint_tpu_torch.ops.padding import (
     bucket_blocks,
@@ -268,3 +273,67 @@ def leaf_hashes_device(items: list[bytes], algo: str = "sha256", device=None) ->
     blocks, n_blocks = _pad_leaves(items, algo)
     digs = _leaf_kernel(algo)(to_words(blocks, dev), to_words(n_blocks, dev))
     return _to_bytes(algo)(to_u32(digs))
+
+
+def _sharded_leaves(items: list[bytes], algo: str, manager):
+    """The leaf pass over a mesh: the padded leaf messages, zero rows
+    added up to a multiple of the active shard count, one leaf launch a
+    shard (`MeshManager.leaf_hash_step`), with the survivor re-mesh
+    loop. Returns (per-shard digest tensors, true row count), or None
+    for the host executor."""
+    from tendermint_tpu_torch.ops.padding import pad_rows_to_multiple
+    from tendermint_tpu_torch.parallel.mesh import MeshExhaustedError
+    from tendermint_tpu_torch.utils.fail import ShardDeviceFault
+
+    if algo not in ALGO_CODES:
+        raise ValueError(f"unknown algo {algo!r}")
+    blocks, n_blocks = _pad_leaves(items, algo)
+    manager.maybe_reprobe()
+    while True:
+        if manager.n_active == 0:
+            raise MeshExhaustedError(f"all {manager.n_total} mesh devices faulted")
+        try:
+            manager.check_shard_faults()
+            if manager.executor == "host":
+                return None
+            (b_pad, n_pad), n = pad_rows_to_multiple([blocks, n_blocks], manager.n_active)
+            return manager.leaf_hash_step(algo)(b_pad, n_pad), n
+        except ShardDeviceFault as e:
+            if not manager.record_shard_fault(e.shard):
+                raise MeshExhaustedError(f"all {manager.n_total} mesh devices faulted") from e
+
+
+def leaf_hashes_sharded(items: list[bytes], algo: str, manager) -> list[bytes]:
+    """`leaf_hashes_device` over a mesh (`parallel.mesh.MeshManager`,
+    which owns the shard faults and the survivor re-mesh): each shard
+    hashes its block of the padded leaves in one launch. Bit-equal to the
+    one-device lane; the pad rows carry n_blocks = 0 and are sliced off.
+    The host executor hashes on the host, with the same fault cycle."""
+    if not items:
+        return []
+    out = _sharded_leaves(items, algo, manager)
+    if out is None:
+        return [host_leaf_hash(x, algo) for x in items]
+    parts, n = out
+    return _to_bytes(algo)(np.concatenate([to_u32(p) for p in parts])[:n])
+
+
+def merkle_root_sharded(items: list[bytes], algo: str, manager) -> bytes:
+    """`merkle_root_device` with its leaf pass over a mesh: the shards'
+    leaf digests are gathered on the first active device and reduced
+    there, one `merkle_level` launch a level. Bit-equal to
+    `merkle.simple.simple_hash_from_byte_slices`."""
+    if not items:
+        return b""
+    out = _sharded_leaves(items, algo, manager)
+    if out is None:
+        return host_root(items, algo)
+    parts, n = out
+    dev = parts[0].device
+    leaves = torch.cat([p.to(dev) for p in parts])[:n]
+    p = _next_pow2(n)
+    if p != n:
+        leaves = torch.cat([leaves, leaves.new_zeros((p - n, leaves.shape[1]))])
+    counts = torch.tensor([n], dtype=torch.int32, device=dev)
+    root = reduce_forest(leaves.contiguous()[None], counts, algo)
+    return _to_bytes(algo)(to_u32(root))[0]

@@ -63,6 +63,16 @@ _WINDOW_REFRESH_FLUSHES = 32
 _STOP = object()
 
 
+def _mesh_width(verifier) -> int:
+    """Cards behind a verifier stack (1 for one-device backends): walks
+    the `mesh` passthrough the resilient and sharded layers export."""
+    mesh = getattr(verifier, "mesh", None)
+    if mesh is None:
+        mesh = getattr(getattr(verifier, "primary", None), "mesh", None)
+    n = getattr(mesh, "n_total", 1)
+    return max(1, int(n) if n else 1)
+
+
 def consumer_kwargs(verifier, consumer: str) -> dict:
     """`{"consumer": ...}` when `verifier` advertises the tag surface
     (every in-tree BatchVerifier), `{}` for minimal test fakes — call
@@ -230,7 +240,9 @@ def _adaptive_window_s() -> float:
     launch_mean = None
     fam = REGISTRY.get("tendermint_verify_seconds")
     if fam is not None:
-        for backend in ("tables", "device", "host"):
+        # "mesh" first: when the sharded backend is live its launch cost
+        # is the one the window amortizes
+        for backend in ("mesh", "tables", "device", "host"):
             snap = fam.labels(backend=backend).value
             if snap["count"]:
                 launch_mean = snap["sum"] / snap["count"]
@@ -556,9 +568,11 @@ class CoalescingVerifier(BatchVerifier):
         cache = VerifiedSigCache(cache_size)
         self.cache = cache if cache.enabled else None
         if max_batch is None:
-            # the cap is per card; a mesh of N cards will coalesce N
-            # windows' worth (the JAX package's `_mesh_width`)
-            max_batch = MAX_COALESCED_BATCH
+            # A merged launch should be able to fill the whole mesh: the
+            # cap is per card, so N cards coalesce N windows' worth
+            # before the size trigger fires (the env knob stays a
+            # per-card figure either way).
+            max_batch = MAX_COALESCED_BATCH * _mesh_width(inner)
         self.coalescer = VerifyCoalescer(
             inner, self.cache, max_batch=max_batch, window_s=window_s
         )

@@ -7,7 +7,10 @@ in one kernel launch and reduces the tree in log2(N) launches on the
 card (`ops/merkle_kernel.py`); the host backend is the bit-identical
 sequential reference (`merkle/simple.py`). Both tree variants run:
 `sha256` (the framework's) and `ripemd160` (the reference-compatible
-tree). Proofs stay on the host.
+tree). Proofs stay on the host. With a `parallel.mesh.MeshManager` of
+more than one shard (`mesh=`) the leaf pass, the O(N) term, shards over
+the mesh: `leaf_hashes` and the leaves of `root_from_items`; the tree
+reduction stays on one card.
 
 `default_hasher()` / `auto_hasher()` wrap the device hasher in
 `ResilientTreeHasher` (`services/resilient.py`), so a device fault
@@ -42,8 +45,9 @@ DEVICE_MIN_LEAVES = int(os.environ.get("TENDERMINT_TPU_MIN_DEVICE_LEAVES", "8192
 
 class TreeHasher:
     """Merkle root/proof builder with host and device backends. The device
-    backend runs on the card unless `device` says otherwise, and raises
-    without a card and without a device."""
+    backend runs on the card (on the mesh's first device with `mesh=`)
+    unless `device` says otherwise, and raises without a card and without
+    a device."""
 
     def __init__(
         self,
@@ -51,6 +55,7 @@ class TreeHasher:
         algo: str = "sha256",
         min_device_leaves: int | None = None,
         device=None,
+        mesh=None,
     ) -> None:
         if backend not in ("device", "host"):
             raise ValueError(f"unknown backend {backend!r}")
@@ -58,10 +63,18 @@ class TreeHasher:
             raise ValueError(f"unknown algo {algo!r}")
         self.algo = algo
         self.backend = backend
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device) if backend == "device" else None
         self.min_device_leaves = (
             DEVICE_MIN_LEAVES if min_device_leaves is None else min_device_leaves
         )
+        # Optional `parallel.mesh.MeshManager`: the leaf pass shards over
+        # it when it has more than one shard; None = one device.
+        self.mesh = mesh
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.n_total > 1
 
     def _use_device(self, n: int) -> bool:
         return self.backend == "device" and n >= max(2, self.min_device_leaves)
@@ -69,6 +82,12 @@ class TreeHasher:
     def root_from_items(self, items: list[bytes]) -> bytes:
         """SimpleMerkle root over raw byte leaves (leaf-prefixed hashes)."""
         t0 = time.perf_counter()
+        if self._use_device(len(items)) and self._sharded():
+            from tendermint_tpu_torch.ops.merkle_kernel import merkle_root_sharded
+
+            out = merkle_root_sharded(items, self.algo, self.mesh)
+            _observe_hash("mesh", len(items), time.perf_counter() - t0)
+            return out
         if self._use_device(len(items)):
             from tendermint_tpu_torch.ops.merkle_kernel import merkle_root_device
 
@@ -102,9 +121,15 @@ class TreeHasher:
 
     def leaf_hashes(self, items: list[bytes]) -> list[bytes]:
         """Per-item domain-separated leaf hashes (state-sync chunk
-        verification): one kernel launch above the threshold, host
-        hashlib below it."""
+        verification): one kernel launch above the threshold (one a shard
+        with a mesh), host hashlib below it."""
         t0 = time.perf_counter()
+        if self._use_device(len(items)) and self._sharded():
+            from tendermint_tpu_torch.ops.merkle_kernel import leaf_hashes_sharded
+
+            out = leaf_hashes_sharded(items, self.algo, self.mesh)
+            _observe_hash("mesh", len(items), time.perf_counter() - t0)
+            return out
         if self._use_device(len(items)):
             from tendermint_tpu_torch.ops.merkle_kernel import leaf_hashes_device
 
@@ -136,9 +161,8 @@ _DEFAULTS_LOCK = threading.Lock()
 
 def default_hasher(device=None) -> TreeHasher:
     """Process-wide device hasher, one per device, on the card (or on
-    `device` when given), wrapped in `ResilientTreeHasher` as the JAX
-    package's is. Raises when no card is present and no device was
-    given."""
+    `device` when given), as `auto_hasher` composes it. Raises when no
+    card is present and no device was given."""
     dev = resolve_device(device)
     with _DEFAULTS_LOCK:
         if dev not in _DEFAULTS:
@@ -148,11 +172,23 @@ def default_hasher(device=None) -> TreeHasher:
 
 def auto_hasher(device=None) -> TreeHasher:
     """A new device-backed hasher on the card (or on `device`), wrapped
-    in `ResilientTreeHasher`, for a node's composition root. Raises
-    without a card and without a device rather than pick the host
-    backend. The wrapper answers with host hashlib only on an injected
-    device fault or a dispatch timeout: a real kernel error raises
+    in `ResilientTreeHasher`, for a node's composition root, as the JAX
+    package's `auto_hasher` composes it: on the card the leaf pass
+    shards over `default_mesh_manager()` when the mesh spans more than
+    one card; on the CPU it does so when TENDERMINT_TPU_MESH_DEVICES
+    asks for two shards or more. Raises without a card and without a
+    device rather than pick the host backend. The wrapper answers with
+    host hashlib only on an injected device fault, a mesh exhausted by
+    shard faults or a dispatch timeout: a real kernel error raises
     (`services/resilient.py`)."""
+    from tendermint_tpu_torch.parallel.mesh import default_mesh_manager, mesh_device_count
     from tendermint_tpu_torch.services.resilient import ResilientTreeHasher
+    from tendermint_tpu_torch.services.verifier import _mesh_opt_in_cpu
 
-    return ResilientTreeHasher(TreeHasher(backend="device", device=resolve_device(device)))
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        sharded = mesh_device_count(dev) > 1
+    else:
+        sharded = _mesh_opt_in_cpu()
+    mesh = default_mesh_manager(dev) if sharded else None
+    return ResilientTreeHasher(TreeHasher(backend="device", device=dev, mesh=mesh))

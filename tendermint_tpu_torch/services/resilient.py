@@ -15,8 +15,10 @@ backend and a host fallback behind a shared `CircuitBreaker`
   the breaker and the node re-upgrades.
 
 What counts as a failure is narrower than in the JAX package, which
-degrades on any exception: here only an `InjectedDeviceFault` and this
-layer's own `DispatchTimeout` do. A real build, launch or CUDA error of
+degrades on any exception: here only an `InjectedDeviceFault` (a
+mesh's `ShardDeviceFault` among them), this layer's own
+`DispatchTimeout` and a `MeshExhaustedError` (every shard of a mesh
+faulted out) do. A real build, launch or CUDA error of
 the port's kernels raises to the caller, untouched by the breaker, so
 that a broken kernel is never answered for by host crypto.
 
@@ -41,6 +43,7 @@ from typing import Sequence
 
 import numpy as np
 
+from tendermint_tpu_torch.parallel.mesh import MeshExhaustedError
 from tendermint_tpu_torch.services.hasher import TreeHasher
 from tendermint_tpu_torch.services.verifier import (
     BatchVerifier,
@@ -60,7 +63,7 @@ class DispatchTimeout(TimeoutError):
 
 
 # the failures this layer answers with the host fallback
-DEGRADABLE = (InjectedDeviceFault, DispatchTimeout)
+DEGRADABLE = (InjectedDeviceFault, DispatchTimeout, MeshExhaustedError)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -290,8 +293,19 @@ class ResilientVerifier(BatchVerifier):
     def degraded(self) -> bool:
         return self._dispatch.breaker.state != "closed"
 
+    @property
+    def mesh(self):
+        """The primary's `MeshManager` when the device backend is
+        sharded (None otherwise): the coalescer reads the mesh size to
+        scale its merge cap, dashboards read the snapshot."""
+        return getattr(self.primary, "mesh", None)
+
     def snapshot(self) -> dict:
-        return self._dispatch.snapshot()
+        out = self._dispatch.snapshot()
+        mesh = self.mesh
+        if mesh is not None:
+            out["mesh"] = mesh.snapshot()
+        return out
 
     def verify_batch(self, triples: Sequence[Triple]) -> np.ndarray:
         return self._dispatch.call(
@@ -405,6 +419,7 @@ class ResilientTreeHasher(TreeHasher):
             algo=primary.algo,
             min_device_leaves=primary.min_device_leaves,
             device=primary.device,
+            mesh=primary.mesh,
         )
         self.primary = primary
         self.fallback = (

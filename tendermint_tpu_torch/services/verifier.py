@@ -1,7 +1,6 @@
 """BatchVerifier: accumulate→flush ed25519 verification service.
 
-Counterpart of `tendermint_tpu/services/verifier.py`'s single-device
-backends:
+Counterpart of `tendermint_tpu/services/verifier.py`:
 
 * `verify_batch(triples)` — synchronous batch verdicts;
 * `add(pk, msg, sig)` / `flush()` — accumulation across call sites,
@@ -10,7 +9,11 @@ backends:
 Backends: `HostBatchVerifier` (sequential pure-Python RFC 8032),
 `DeviceBatchVerifier` (the generic ladder, `ops.ed25519_kernel`, padded
 to power-of-two buckets) and `TableBatchVerifier` (cached per-validator
-comb tables, `ops.ed25519_tables`: the consensus and fast-sync path).
+comb tables, `ops.ed25519_tables`: the consensus and fast-sync path),
+and their sharded counterparts over a `parallel.mesh.MeshManager`:
+`ShardedBatchVerifier` (flat lanes over every active shard) and
+`ShardedTableBatchVerifier` (table columns split along the validator
+axis), which re-mesh onto the survivors of a shard fault.
 
 Device backends run on the CUDA card unless constructed with
 `device="cpu"`; without a card and without a device they raise. A
@@ -41,8 +44,10 @@ import torch
 from tendermint_tpu_torch.crypto.keys import PUBKEY_LEN, PubKey
 from tendermint_tpu_torch.device import resolve_device
 from tendermint_tpu_torch.ops.ed25519_kernel import (
+    bucket_size,
     launch_batch_verify,
     materialize_batch_verify,
+    prepare_batch,
 )
 from tendermint_tpu_torch.ops.ed25519_tables import (
     build_key_tables,
@@ -50,10 +55,20 @@ from tendermint_tpu_torch.ops.ed25519_tables import (
     prepare_commit_lanes,
     verify_tables_kernel,
 )
+from tendermint_tpu_torch.ops.padding import pad_rows_to
+from tendermint_tpu_torch.parallel.mesh import (
+    MeshExhaustedError,
+    MeshManager,
+    default_mesh_manager,
+    gather_verdicts,
+    mesh_device_count,
+    shard_lanes_validator_major,
+    unshard_lanes_validator_major,
+)
 from tendermint_tpu_torch.telemetry import metrics as _metrics
 from tendermint_tpu_torch.utils import shutdown
 from tendermint_tpu_torch.utils.circuit import CircuitBreaker
-from tendermint_tpu_torch.utils.fail import InjectedDeviceFault, device_fail_point
+from tendermint_tpu_torch.utils.fail import InjectedDeviceFault, ShardDeviceFault, device_fail_point
 from tendermint_tpu_torch.utils.log import kv, logger
 
 Triple = tuple[bytes, bytes, bytes]  # (pubkey32, message, signature64)
@@ -187,6 +202,17 @@ class DeviceBatchVerifier(BatchVerifier):
         # launch -> copied back, the time in flight included
         _observe_verify("device", len(out), time.perf_counter() - t0)
         return out
+
+
+def _table_keys(pubkeys):
+    """(pubkeys with every malformed key replaced by the identity's
+    encoding, length_ok): a malformed key degrades to a False verdict,
+    as on every other backend, instead of corrupting the table build."""
+    length_ok = np.array([len(pk) == 32 for pk in pubkeys], dtype=bool)
+    if not length_ok.all():
+        placeholder = b"\x01" + b"\x00" * 31  # identity point encoding
+        pubkeys = [pk if ok else placeholder for pk, ok in zip(pubkeys, length_ok)]
+    return pubkeys, length_ok
 
 
 class TableBuildError(RuntimeError):
@@ -428,12 +454,7 @@ class TableBatchVerifier(DeviceBatchVerifier):
             return ("host", np.zeros((k, n), dtype=bool))
         if k * n < self._min_batch:
             return ("host", self._host_commit_loop(pubkeys, commits))
-        # malformed pubkeys degrade to a False verdict (matching every
-        # other backend) instead of corrupting the table build
-        length_ok = np.array([len(pk) == 32 for pk in pubkeys], dtype=bool)
-        if not length_ok.all():
-            placeholder = b"\x01" + b"\x00" * 31  # identity point encoding
-            pubkeys = [pk if ok else placeholder for pk, ok in zip(pubkeys, length_ok)]
+        pubkeys, length_ok = _table_keys(pubkeys)
         try:
             tables, key_ok = self.tables_for(tuple(pubkeys))
         except TableBuildError:
@@ -491,6 +512,301 @@ class TableBatchVerifier(DeviceBatchVerifier):
         return out
 
 
+class _MeshFlatMixin:
+    """Mesh plumbing shared by the sharded backends: the flat (pub, r,
+    s, h) lane over a `parallel.mesh.MeshManager`, with the survivor
+    re-mesh loop around every launch.
+
+    Geometry: rows are padded to `bucket_size(ceil(n / n_active)) *
+    n_active`, a power-of-two bucket a shard (min 8) times the active
+    shards, one contiguous block a shard: the same per-shard buckets
+    serve any mesh size.
+    """
+
+    mesh: MeshManager  # set by the subclass's __init__
+
+    def _mesh_flat_launch(self, pub, r, s, h, powers):
+        """One sharded launch over the active mesh: re-meshes onto the
+        survivors of a shard fault, raises `MeshExhaustedError` (into the
+        caller's breaker) when no shard remains. Returns (per-shard
+        verdicts, tally), not yet copied back."""
+        m = self.mesh
+        m.maybe_reprobe()
+        n = pub.shape[0]
+        while True:
+            ndev = m.n_active
+            if ndev == 0:
+                raise MeshExhaustedError(f"all {m.n_total} mesh devices faulted")
+            try:
+                m.check_shard_faults()
+                size = bucket_size(-(-n // ndev)) * ndev
+                return m.verify_step()(*pad_rows_to([pub, r, s, h, powers], size))
+            except ShardDeviceFault as e:
+                if not m.record_shard_fault(e.shard):
+                    raise MeshExhaustedError(f"all {m.n_total} mesh devices faulted") from e
+
+    def launch_verify_batch(self, triples):
+        """Flat-batch async half: host prep and one launch a shard over
+        every active shard (the coalescer's merged batches land here: one
+        logical device that is N cards). Sub-minimum batches and
+        one-shard meshes take the one-device paths."""
+        if self.mesh.n_total <= 1:
+            return super().launch_verify_batch(triples)
+        if not triples:
+            return ("host", np.zeros(0, dtype=bool))
+        if len(triples) < self._min_batch:
+            return ("host", self._host.verify_batch(triples))
+        pubs, msgs, sigs = zip(*triples)
+        t0 = time.perf_counter()
+        pub, r, s, h, precheck = prepare_batch(pubs, msgs, sigs)
+        powers = np.zeros(len(triples), dtype=np.int32)
+        ok, _total = self._mesh_flat_launch(pub, r, s, h, powers)
+        return ("mesh", ok, precheck, len(triples), t0)
+
+    def finalize_verify_batch(self, launched) -> np.ndarray:
+        if launched[0] != "mesh":
+            return super().finalize_verify_batch(launched)
+        _tag, ok, precheck, n, t0 = launched
+        out = gather_verdicts(ok)[:n] & precheck
+        _observe_verify("mesh", n, time.perf_counter() - t0)
+        return out
+
+    def verify_batch_with_powers(self, triples, powers):
+        """Commit-tally lane: per-item verdicts and the verified-power
+        total summed on the devices across all shards (no host gather
+        for the 2/3-quorum sum). Pad rows and precheck-failed rows carry
+        zero power, so they never count."""
+        if not triples:
+            return np.zeros(0, dtype=bool), 0
+        pubs, msgs, sigs = zip(*triples)
+        t0 = time.perf_counter()
+        pub, r, s, h, precheck = prepare_batch(pubs, msgs, sigs)
+        pw = np.asarray(powers, dtype=np.int32) * precheck
+        ok, total = self._mesh_flat_launch(pub, r, s, h, pw)
+        mask = gather_verdicts(ok)[: len(triples)] & precheck
+        _observe_verify("mesh", len(triples), time.perf_counter() - t0)
+        return mask, int(total)
+
+    def snapshot(self) -> dict:
+        return {"mesh": self.mesh.snapshot()}
+
+
+class ShardedBatchVerifier(_MeshFlatMixin, DeviceBatchVerifier):
+    """Flat-ladder batch verifier sharded over a device mesh.
+
+    Every launch splits the batch axis over the active shards of a
+    `MeshManager` and sums the power tally on the devices. Commit grids
+    flatten their present lanes into the same flat mesh lane and scatter
+    the verdicts back, so fast-sync windows and consensus commits ride N
+    cards without validator-set tables. The backend's `device` is the
+    mesh's first device.
+    """
+
+    def __init__(self, mesh: MeshManager | None = None, min_device_batch: int | None = None, device=None) -> None:
+        mesh = mesh if mesh is not None else MeshManager(device=device)
+        super().__init__(device=mesh.devices[0], min_device_batch=min_device_batch)
+        self.mesh = mesh
+
+    def verify_commits(self, pubkeys, commits, force_fused=None) -> np.ndarray:
+        return self.finalize_verify_commits(
+            self.launch_verify_commits(pubkeys, commits, force_fused=force_fused)
+        )
+
+    def launch_verify_commits(self, pubkeys, commits, force_fused=None):
+        """Commit grids as flat mesh lanes: the present (msg, sig) lanes
+        go into one sharded launch (`force_fused` is a table-path
+        choice; ignored here)."""
+        n, k = len(pubkeys), len(commits)
+        lanes: list[tuple[int, int]] = []
+        triples: list[Triple] = []
+        for ci, (msgs, sigs) in enumerate(commits):
+            for i in range(n):
+                if msgs[i] is not None and sigs[i] is not None:
+                    lanes.append((ci, i))
+                    triples.append((pubkeys[i], msgs[i], sigs[i]))
+        if self.mesh.n_total <= 1 or len(triples) < self._min_batch:
+            grid = np.zeros((k, n), dtype=bool)
+            if triples:
+                verdicts = self._host.verify_batch(triples)
+                for (ci, i), ok in zip(lanes, verdicts):
+                    grid[ci, i] = bool(ok)
+            return ("host_grid", grid)
+        return ("mesh_grid", self.launch_verify_batch(triples), lanes, k, n)
+
+    def finalize_verify_commits(self, launched) -> np.ndarray:
+        if launched[0] == "host_grid":
+            return launched[1]
+        _tag, flat, lanes, k, n = launched
+        mask = self.finalize_verify_batch(flat)
+        grid = np.zeros((k, n), dtype=bool)
+        for (ci, i), ok in zip(lanes, mask):
+            grid[ci, i] = bool(ok)
+        return grid
+
+    def verify_commits_async(self, pubkeys, commits, queue=None, force_fused=None, consumer="default"):
+        from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+
+        q = queue if queue is not None else default_dispatch_queue()
+        return q.submit(
+            lambda: self.launch_verify_commits(pubkeys, commits, force_fused=force_fused),
+            self.finalize_verify_commits,
+            kind="verify",
+        )
+
+
+class ShardedTableBatchVerifier(_MeshFlatMixin, TableBatchVerifier):
+    """The table path over a mesh: the multi-card steady-state backend.
+
+    Commit grids shard along the VALIDATOR axis: each shard holds
+    N/n_active of the cached comb-table columns on its device and the
+    lanes of its own validators for every stacked commit
+    (`shard_lanes_validator_major`), and the power tally is summed on the
+    devices. Each shard picks its chain from the stack depth, as
+    `verify_tables_kernel(impl="auto")` does. The tables are built once
+    on the mesh's first device through `tables_for` (and its build
+    breaker), then sliced and placed, cached by (valset, active devices).
+
+    Falls back per call to the one-card table path when the set does not
+    split evenly over the active shards (N % n_active != 0), and to flat
+    mesh lanes when the mesh's executor has no table step (the host
+    executor).
+    """
+
+    def __init__(
+        self,
+        mesh: MeshManager | None = None,
+        cache_size: int = 4,
+        min_device_batch: int | None = None,
+        device=None,
+    ) -> None:
+        mesh = mesh if mesh is not None else MeshManager(device=device)
+        super().__init__(device=mesh.devices[0], cache_size=cache_size, min_device_batch=min_device_batch)
+        self.mesh = mesh
+        # (valset key, active device tuple) -> per-shard table columns
+        self._sharded_tables: dict = {}
+
+    def warm_kernels(self):
+        """`TableBatchVerifier.warm_kernels` on every card of the mesh:
+        one background thread (returned) that runs the routes on the
+        first card and each mesh step's kernels on every card not yet
+        warmed (`parallel.mesh.warm_devices`). None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        from tendermint_tpu_torch.ops import _build
+        from tendermint_tpu_torch.parallel.mesh import warm_devices
+
+        def first_use():
+            self._first_use()
+            warm_devices(self.mesh.devices)
+
+        return _build.warm(self.device, first_use)
+
+    def _tables_for_mesh(self, pubkeys: tuple[bytes, ...], devices: tuple):
+        """The set's tables split along the validator axis over `devices`:
+        shard i's columns, contiguous on its device (cached by set and
+        device tuple), and key_ok."""
+        tables, key_ok = self.tables_for(pubkeys)
+        key = (self._cache_key(pubkeys), devices)
+        with self._cache_lock:
+            hit = self._sharded_tables.get(key)
+        if hit is not None:
+            _metrics.TABLE_DEVICE_CACHE.labels(result="hit").inc()
+            return hit, key_ok
+        _metrics.TABLE_DEVICE_CACHE.labels(result="miss").inc()
+        per = tables.shape[3] // len(devices)
+        placed = [
+            tables[..., i * per : (i + 1) * per].contiguous().to(dev)
+            for i, dev in enumerate(devices)
+        ]
+        with self._cache_lock:
+            self._sharded_tables[key] = placed
+            while len(self._sharded_tables) > self._cache_size * 2:
+                self._sharded_tables.pop(next(iter(self._sharded_tables)))
+        return placed, key_ok
+
+    def launch_verify_commits(self, pubkeys, commits, force_fused=None):
+        n, k = len(pubkeys), len(commits)
+        m = self.mesh
+        if m.n_total <= 1:
+            return super().launch_verify_commits(pubkeys, commits, force_fused=force_fused)
+        if n == 0 or k == 0:
+            return ("host", np.zeros((k, n), dtype=bool))
+        if k * n < self._min_batch:
+            return ("host", self._host_commit_loop(pubkeys, commits))
+        if m.executor != "device":
+            # host-executor mesh: flat lanes keep the fault / re-mesh
+            # choreography without a table step
+            return ShardedBatchVerifier.launch_verify_commits(self, pubkeys, commits)
+        m.maybe_reprobe()
+        while True:
+            if m.n_active == 0:
+                raise MeshExhaustedError(f"all {m.n_total} mesh devices faulted")
+            if n % m.n_active != 0:
+                # uneven split: this call takes the one-card table path
+                # (still behind the breaker above)
+                return super().launch_verify_commits(pubkeys, commits, force_fused=force_fused)
+            try:
+                m.check_shard_faults()
+                return self._launch_mesh_tables(pubkeys, commits, force_fused)
+            except ShardDeviceFault as e:
+                if not m.record_shard_fault(e.shard):
+                    raise MeshExhaustedError(f"all {m.n_total} mesh devices faulted") from e
+
+    def _launch_mesh_tables(self, pubkeys, commits, force_fused):
+        n, k = len(pubkeys), len(commits)
+        devices = self.mesh.active_devices()
+        ndev = len(devices)
+        pubkeys, length_ok = _table_keys(pubkeys)
+        try:
+            tables, key_ok = self._tables_for_mesh(tuple(pubkeys), devices)
+        except TableBuildError:
+            return ("host", self._host_commit_loop(pubkeys, commits))
+        key_ok = key_ok & length_ok
+        impl = {None: "auto", True: "fused", False: "entries"}[force_fused]
+        t0 = time.perf_counter()
+        s, h, r, precheck = prepare_commit_lanes(pubkeys, commits)
+        lane_ok = precheck & np.tile(key_ok, k)
+        powers = np.ones(k * n, dtype=np.int32)
+        lanes = shard_lanes_validator_major([s, h, r, lane_ok, powers], n, ndev)
+        ok, _total = self.mesh.tables_step()(tables, *lanes, impl=impl)
+        return ("mesh_tables", ok, ndev, k, n, t0)
+
+    def finalize_verify_commits(self, launched) -> np.ndarray:
+        if launched[0] in ("host_grid", "mesh_grid"):
+            return ShardedBatchVerifier.finalize_verify_commits(self, launched)
+        if launched[0] != "mesh_tables":
+            return super().finalize_verify_commits(launched)
+        _tag, ok, ndev, k, n, t0 = launched
+        lanes = unshard_lanes_validator_major(gather_verdicts(ok), n, ndev)
+        _observe_verify("mesh", k * n, time.perf_counter() - t0)
+        return lanes.reshape(k, n)
+
+
+def _mesh_opt_in_cpu() -> bool:
+    """The CPU joins the sharded mesh only when
+    TENDERMINT_TPU_MESH_DEVICES explicitly asks for two shards or more
+    (the kernels' plain versions are far slower than host crypto, so
+    this exists for testing the mesh path, not for speed); on the card
+    the mesh is the default whenever more than one card is visible."""
+    knob = os.environ.get("TENDERMINT_TPU_MESH_DEVICES")
+    if not knob or int(knob) < 2:
+        return False
+    return mesh_device_count("cpu") > 1
+
+
+def _default_primary(dev: torch.device) -> BatchVerifier:
+    """The device backend of `dev`'s default stack: the sharded table
+    path over `default_mesh_manager()` on a card with more than one card
+    in the mesh, else the one-card table path; on the CPU the sharded
+    flat lanes when TENDERMINT_TPU_MESH_DEVICES opts in, else the table
+    path."""
+    if dev.type == "cuda" and mesh_device_count(dev) > 1:
+        return ShardedTableBatchVerifier(mesh=default_mesh_manager(dev))
+    if dev.type == "cpu" and _mesh_opt_in_cpu():
+        return ShardedBatchVerifier(mesh=default_mesh_manager(dev))
+    return TableBatchVerifier(device=dev)
+
+
 _DEFAULTS: dict[torch.device, BatchVerifier] = {}
 _DEFAULTS_LOCK = threading.Lock()
 
@@ -498,7 +814,14 @@ _DEFAULTS_LOCK = threading.Lock()
 def default_verifier(device=None) -> BatchVerifier:
     """Process-wide verifier stack, one per device, as the JAX package's
     `default_verifier` composes it on an accelerator:
-    `CoalescingVerifier(ResilientVerifier(TableBatchVerifier(device)))`.
+    `CoalescingVerifier(ResilientVerifier(TableBatchVerifier(device)))`,
+    and with more than one card in the mesh (`mesh_device_count()`,
+    TENDERMINT_TPU_MESH_DEVICES) `ShardedTableBatchVerifier` over
+    `default_mesh_manager()` in place of `TableBatchVerifier`, so that a
+    shard fault re-meshes onto the survivors before the breaker
+    considers host crypto. With `device="cpu"` and
+    TENDERMINT_TPU_MESH_DEVICES >= 2 the primary is a
+    `ShardedBatchVerifier` over that many CPU shards.
 
     The table backend runs on the card (or on `device` when given), so
     its table cache is shared by every caller; the resilient layer
@@ -512,7 +835,7 @@ def default_verifier(device=None) -> BatchVerifier:
         if dev not in _DEFAULTS:
             from tendermint_tpu_torch.services.resilient import ResilientVerifier
 
-            stack: BatchVerifier = ResilientVerifier(TableBatchVerifier(device=dev))
+            stack: BatchVerifier = ResilientVerifier(_default_primary(dev))
             if os.environ.get("TENDERMINT_TPU_COALESCE", "1") != "0":
                 from tendermint_tpu_torch.services.batcher import CoalescingVerifier
 

@@ -3,8 +3,9 @@ the JAX package's names and label sets (`tendermint_tpu/telemetry/metrics.py`),
 registered at import into the port's own `REGISTRY`.
 
 Label values are low-cardinality by construction: `backend` in {host,
-device, tables}, `kind` in {verify, hash, tables}, `queue` and
-`consumer` the pipeline owners.
+device, tables, mesh}, `kind` in {verify, hash, tables}, `queue` and
+`consumer` the pipeline owners, `direction` in {shrink, restore},
+`result` in {hit, miss}.
 """
 
 from __future__ import annotations
@@ -47,6 +48,45 @@ TABLE_CACHE = Counter(
     "tendermint_verify_table_cache_total",
     "Valset comb-table cache outcomes (hit/miss/incremental/host_build)",
     labelnames=("event",),
+)
+
+# -- multi-card verify mesh (parallel/mesh.py) ---------------------------------
+#
+# `direction` is the re-mesh kind: "shrink" (shard fault -> survivors)
+# or "restore" (re-probe brought the full mesh back).
+
+MESH_DEVICES = Gauge(
+    "tendermint_mesh_devices",
+    "Devices currently active in the sharded verify/hash mesh",
+)
+MESH_SHARD_FAULTS = Counter(
+    "tendermint_mesh_shard_faults_total",
+    "Per-shard device faults observed by mesh launches",
+)
+MESH_REMESH = Counter(
+    "tendermint_mesh_remesh_total",
+    "Mesh rebuilds (shrink = onto survivors after a shard fault, "
+    "restore = full mesh back after a successful re-probe)",
+    labelnames=("direction",),
+)
+MESH_COMPILE = Counter(
+    "tendermint_mesh_compile_total",
+    "Mesh step-cache lookups by outcome: a miss is the first use of a "
+    "device set, which warms every card of it not yet warmed",
+    labelnames=("result",),
+)
+MESH_COMPILE_SECONDS = Histogram(
+    "tendermint_mesh_compile_seconds",
+    "Wall time one step-cache miss spent warming its device set (the "
+    "launch that pays it stalls for the duration)",
+    buckets=LATENCY_BUCKETS,
+)
+TABLE_DEVICE_CACHE = Counter(
+    "tendermint_table_device_cache_total",
+    "Per-(valset, device-set) sharded-table placement cache outcomes; "
+    "a miss slices the comb tables and copies each shard's columns to "
+    "its card",
+    labelnames=("result",),
 )
 
 # -- resilient dispatch / circuit breaker -------------------------------------
@@ -136,3 +176,8 @@ for _kind in ("verify", "hash", "tables"):
     BREAKER_STATE.labels(kind=_kind).set(0)
 for _reason in ("window", "size", "barrier"):
     BATCHER_FLUSH.labels(reason=_reason).inc(0)
+for _direction in ("shrink", "restore"):
+    MESH_REMESH.labels(direction=_direction).inc(0)
+for _result in ("hit", "miss"):
+    MESH_COMPILE.labels(result=_result).inc(0)
+    TABLE_DEVICE_CACHE.labels(result=_result).inc(0)

@@ -62,3 +62,37 @@ def device_fail_point(kind: str) -> None:
         if remaining > 0:
             faults[k] = remaining - 1
         raise InjectedDeviceFault(f"injected {kind} device fault")
+
+
+class ShardDeviceFault(InjectedDeviceFault):
+    """A device fault attributable to one shard of a mesh (the per-card
+    counterpart of InjectedDeviceFault): the mesh layer catches it and
+    re-meshes onto the survivors instead of tripping the whole verify
+    breaker."""
+
+    def __init__(self, shard: int):
+        super().__init__(f"injected device fault on mesh shard {shard}")
+        self.shard = shard
+
+
+def shard_fail_point(indices) -> None:
+    """Per-shard counterpart of `device_fail_point`: spec entries of the
+    form "shard<i>" (optionally "shard<i>:<count>") fail launches whose
+    active mesh includes shard `i`. Raises `ShardDeviceFault(i)` for the
+    first armed index in `indices`, consuming one unit of its budget."""
+    faults = _load_device_faults()
+    if not faults:
+        return
+    for i in indices:
+        remaining = faults.get(f"shard{i}")
+        if remaining is None or remaining == 0:
+            continue
+        if remaining > 0:
+            faults[f"shard{i}"] = remaining - 1
+        raise ShardDeviceFault(i)
+
+
+def shard_fault_armed(index: int) -> bool:
+    """True while a fault is still armed for mesh shard `index` (the
+    re-probe peeks without consuming budget)."""
+    return bool(_load_device_faults().get(f"shard{index}"))

@@ -10,6 +10,9 @@ Outputs are integers, so kernel and plain version must agree exactly on
 the canonical coordinates (affine x, y for the two kernels that add in
 another order than their plain versions) and on the verdicts. The
 machine with the card has no jax: run this file with `--noconftest`.
+The last two tests drive the mesh (`parallel/mesh.py`) on the card: four
+shards (one a card where four are visible) against the one-card
+verifier, and a shard fault re-meshed mid-call.
 """
 
 from __future__ import annotations
@@ -461,3 +464,76 @@ def test_hash_wrappers_launch_nothing_for_no_rows(dev):
     got = HS.sha256_masked(torch.zeros((0, 1, 16), dtype=torch.int32, device=dev),
                            torch.zeros((0,), dtype=torch.int32, device=dev))
     assert got.shape == (0, 8) and HS.sha256_masked.launches == before
+
+
+# -- the mesh (`parallel/mesh.py`) on the card --------------------------------
+
+
+def _mesh_triples(n, corrupt=()):
+    out = []
+    for i in range(n):
+        seed = bytes([i + 1]) * 32
+        msg = b"card-mesh-%d" % i
+        sig = ed25519_ref.sign(seed, msg)
+        if i in corrupt:
+            sig = sig[:8] + bytes([sig[8] ^ 1]) + sig[9:]
+        out.append((ed25519_ref.public_from_seed(seed), msg, sig))
+    return out
+
+
+def _card_mesh(reprobe_s=60.0):
+    """Four shards: one a card where four are visible, else several on one."""
+    from tendermint_tpu_torch.parallel.mesh import MeshManager
+
+    n = torch.cuda.device_count()
+    return MeshManager(devices=[torch.device("cuda", i % n) for i in range(4)], reprobe_s=reprobe_s)
+
+
+def test_mesh_matches_the_one_card_verifier(dev, monkeypatch):
+    """A 4-shard mesh on the card: the flat batch's mask and tally, and a
+    32-validator commit and a stack of 8 through the table path (the
+    entries chain, then the fused chain, a shard), equal the one-card
+    verifier's on the same lanes."""
+    from tendermint_tpu_torch.services.verifier import (
+        ShardedBatchVerifier,
+        ShardedTableBatchVerifier,
+        TableBatchVerifier,
+    )
+    from tendermint_tpu_torch.utils import fail
+
+    monkeypatch.setattr(fail, "_device_faults", {})
+    mesh = _card_mesh()
+    triples = _mesh_triples(40, corrupt={3, 17})
+    powers = np.arange(1, 41, dtype=np.int32)
+    one = TableBatchVerifier(device=dev, min_device_batch=1)
+    want = one.verify_batch(triples)
+    assert want.sum() == 38
+    mask, tally = ShardedBatchVerifier(mesh=mesh, min_device_batch=1).verify_batch_with_powers(triples, powers)
+    assert (mask == want).all() and tally == int(powers[want].sum())
+    pubs, msgs, sigs = (list(x) for x in zip(*triples[:32]))
+    tv = ShardedTableBatchVerifier(mesh=mesh, min_device_batch=1)
+    for k in (1, 8):
+        stack = [(msgs, sigs)] * k
+        assert (tv.verify_commits(pubs, stack) == one.verify_commits(pubs, stack)).all()
+    tv.close()
+    one.close()
+
+
+def test_mesh_remeshes_a_shard_fault_mid_call(dev, monkeypatch):
+    """A fault armed on shard 1 for one launch: the call re-meshes onto
+    the other three shards and answers exactly, one ladder launch a
+    surviving shard."""
+    from tendermint_tpu_torch.services.verifier import HostBatchVerifier, ShardedBatchVerifier
+    from tendermint_tpu_torch.utils import fail
+
+    monkeypatch.setattr(fail, "_device_faults", {})
+    mesh = _card_mesh()
+    v = ShardedBatchVerifier(mesh=mesh, min_device_batch=1)
+    triples = _mesh_triples(24, corrupt={7})
+    want = HostBatchVerifier().verify_batch(triples)
+    v.verify_batch(triples)  # first use of the device set
+    fail.set_device_fault("shard1", 1)
+    before = TL.ladder.launches
+    assert (v.verify_batch(triples) == want).all()
+    assert mesh.active_indices() == (0, 2, 3)
+    assert TL.ladder.launches - before == 3
