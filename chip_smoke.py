@@ -73,6 +73,22 @@ bytes):
    a cold call and the median of 3 beside the bare phase's, and fails on
    an inexact mask, root or tally, a kernel not launched once a shard,
    or a shard fault, re-mesh or fallback it did not inject;
+   telemetry in phases 6 and 7: the launch ledger (`LAUNCHLOG`, written
+   to chiprun_out/launches.jsonl) must account for every kernel launch
+   of each step's backend calls, one record a dispatch unit, its kernel
+   once a shard (a step fails on a difference and on a record with an
+   error it did not inject), and each step prints one `launches` line,
+   the ledger's `summarize()` of its records; the stack's window call
+   runs under a minted trace context and its flat consumers under their
+   own, and their `dispatch.launch` and `batcher.flush` spans must land
+   in chiprun_out/spans.jsonl with the ledger record's trace id; the
+   flat step times its locks' contention (`contention_snapshot`); the
+   cached commit runs 5 times with the ledger on and 5 off, in turns
+   (medians and ratio reported, not gated); both fault drills must
+   leave their breaker transitions and the mesh's shard fault and
+   restore in the flight recorder; a failing run dumps the flight
+   recorder to chiprun_out/, and every run writes the metric registry
+   to chiprun_out/metrics.prom (Prometheus text) and chip_smoke.json;
 1. kernel vs plain: each kernel against its plain torch version on the
    card, on the inputs its phase gave it (the entries chain also at
    4096 lanes and at 3 commits of the fast-sync set), compared exactly
@@ -1086,6 +1102,117 @@ def _launched(c: dict, names, what: str) -> None:
             raise AssertionError(f"stack {what}: {name} did not launch")
 
 
+# -- telemetry: the launch ledger, spans, the flight recorder ----------------
+
+OUT = pathlib.Path("chiprun_out")
+LEDGER_FILE = "launches.jsonl"
+SPANS_FILE = "spans.jsonl"
+METRICS_FILE = "metrics.prom"
+# a ledger ring that holds the whole run: each step reads the records it
+# committed by position
+LEDGER_CAPACITY = 1 << 20
+LEDGER_REPS = 5  # cached commits with the ledger on, then off, in turns
+
+
+def attach_telemetry() -> None:
+    """Point the process's launch ledger at chiprun_out/launches.jsonl and
+    its tracer's span log at chiprun_out/spans.jsonl, both started empty,
+    and the flight recorder's dumps at chiprun_out/."""
+    from tendermint_tpu_torch.telemetry import TRACER
+    from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
+    from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
+    from tendermint_tpu_torch.telemetry.spanlog import persist_spans
+
+    OUT.mkdir(exist_ok=True)
+    for name in (LEDGER_FILE, SPANS_FILE):
+        (OUT / name).unlink(missing_ok=True)
+    LAUNCHLOG.capacity = LEDGER_CAPACITY
+    LAUNCHLOG.attach(str(OUT / LEDGER_FILE), node_id="chip_smoke")
+    persist_spans(TRACER, str(OUT / SPANS_FILE))
+    FLIGHT.set_dump_dir(str(OUT))
+    FLIGHT.set_node_id("chip_smoke")
+
+
+def dump_metrics() -> dict:
+    """The metric registry as Prometheus text (chiprun_out/metrics.prom)
+    and as the structured dump (returned, for chip_smoke.json)."""
+    from tendermint_tpu_torch.telemetry import REGISTRY
+
+    (OUT / METRICS_FILE).write_text(REGISTRY.prometheus_text())
+    return REGISTRY.to_dict()
+
+
+def drop_stale_record() -> None:
+    """A mesh step called directly (not through a backend) annotates the
+    step cache's hit into an implicit launch record no backend commits:
+    drop it, so that the next backend call's record starts clean."""
+    from tendermint_tpu_torch.telemetry import launchlog
+
+    launchlog.detach(launchlog.current())
+
+
+def spans_of(name: str) -> dict:
+    """Trace id -> the spans called `name` in chiprun_out/spans.jsonl."""
+    out: dict = {}
+    for line in (OUT / SPANS_FILE).read_text().splitlines():
+        span = json.loads(line)
+        if span["name"] == name:
+            out.setdefault(span.get("attrs", {}).get("trace"), []).append(span)
+    return out
+
+
+class StepLedger:
+    """One step's launch-ledger account. Each call the step makes through
+    a backend runs in `call()`, which holds the records the call committed
+    against the kernel wrappers' launches it made
+    (`testing.ledger_launches` against `testing.kernel_launches`: one
+    record a dispatch unit, its kernel once a shard, the finish after
+    every verify); `close()` fails on a record with an error the step did
+    not inject and prints the step's `launches` line, the ledger's
+    `summarize()` of its records."""
+
+    def __init__(self, phase: str, step: str):
+        from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
+
+        self.phase, self.step = phase, step
+        self.mark = len(LAUNCHLOG)
+        self.kernels: dict = {}
+
+    def call(self, fn):
+        from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
+        from tendermint_tpu_torch.testing import kernel_launches, ledger_launches
+
+        mark, before = len(LAUNCHLOG), counts()
+        out = fn()
+        after = counts()
+        got = ledger_launches(LAUNCHLOG.recent()[mark:])
+        want = kernel_launches({k: after[k] - before[k] for k in after})
+        if got != want:
+            raise AssertionError(f"{self.phase} {self.step}: the ledger's records account for {got} launches, "
+                                 f"the kernel wrappers counted {want}")
+        for k, v in want.items():
+            self.kernels[k] = self.kernels.get(k, 0) + v
+        return out
+
+    def records(self) -> list:
+        from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
+
+        return LAUNCHLOG.recent()[self.mark:]
+
+    def close(self, errors: int = 0) -> dict:
+        from tendermint_tpu_torch.telemetry.launchlog import summarize
+
+        recs = self.records()
+        failed = [r for r in recs if r.get("error")]
+        if len(failed) != errors:
+            raise AssertionError(f"{self.phase} {self.step}: ledger records with an error {failed}, "
+                                 f"{errors} injected")
+        line = {"launches": f"{self.phase} {self.step}", "records": len(recs), "kernel_launches": self.kernels,
+                "kinds": summarize(recs)}
+        log(line)
+        return line
+
+
 def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict:
     """Phase 6: the main path's work through the stack a node calls.
     `commit`, `window`, `flat` are the earlier phases' inputs with their
@@ -1102,7 +1229,9 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     from tendermint_tpu_torch.services.hasher import default_hasher
     from tendermint_tpu_torch.services.resilient import ResilientTreeHasher, ResilientVerifier
     from tendermint_tpu_torch.services.verifier import DEVICE_MIN_BATCH, TableBatchVerifier
-    from tendermint_tpu_torch.utils import fail
+    from tendermint_tpu_torch.telemetry import tracectx
+    from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
+    from tendermint_tpu_torch.utils import fail, lockrank
     from tendermint_tpu_torch.utils.circuit import CLOSED, OPEN, CircuitBreaker
 
     rep: dict = {}
@@ -1165,6 +1294,7 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     pubs, commits, expected, bare_s = commit
     good = int(expected.sum())
     runs: dict = {"cold": [], "cached": []}
+    led = StepLedger("stack", "commit")
 
     def commit_call(v, kind):
         t0 = time.perf_counter()
@@ -1173,7 +1303,7 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
         got = []
         h0 = _counter(hits)
         reset_counts()
-        dt = timed(lambda: got.append(v.verify_commits(pubs, commits)), sync)
+        dt = timed(lambda: got.append(led.call(lambda: v.verify_commits(pubs, commits))), sync)
         c = counts()
         check_mask(f"stack commit ({kind})", got[0], expected[None, :])
         hit = int(_counter(hits) - h0)
@@ -1191,6 +1321,26 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
             v.coalescer.close()  # the resilient layer and tables stay the stack's
     for _ in range(reps):
         commit_call(stack, "cached")
+    # the ledger's cost: the cached commit with the ledger on and off, in
+    # turns (reported, not gated: the host's noise is larger)
+    on_s, off_s = [], []
+    knob = os.environ.get("TENDERMINT_TPU_LAUNCHLOG")
+    try:
+        for _ in range(LEDGER_REPS):
+            for flag, times in (("1", on_s), ("0", off_s)):
+                os.environ["TENDERMINT_TPU_LAUNCHLOG"] = flag
+                got = []
+                times.append(timed(lambda: got.append(stack.verify_commits(pubs, commits)), sync))
+                check_mask(f"stack commit (ledger {flag})", got[0], expected[None, :])
+    finally:
+        if knob is None:
+            os.environ.pop("TENDERMINT_TPU_LAUNCHLOG", None)
+        else:
+            os.environ["TENDERMINT_TPU_LAUNCHLOG"] = knob
+    rep["ledger_overhead"] = {"reps": LEDGER_REPS, "on_s": on_s, "off_s": off_s,
+                              "on_s_median": statistics.median(on_s), "off_s_median": statistics.median(off_s),
+                              "on_over_off": statistics.median(on_s) / statistics.median(off_s)}
+    log({"phase": "stack", "step": "ledger_overhead", **rep["ledger_overhead"]})
     health.check("commit")
     med = {f"{kind}_{key}_median": statistics.median(r[key] for r in rs)
            for kind, rs in runs.items() for key in ("s", "filter_s")}
@@ -1199,6 +1349,7 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
                      "cache_hits": [r["cache_hits"] for r in runs["cold"] + runs["cached"]],
                      "launches": {kind: rs[0]["launches"] for kind, rs in runs.items()}}
     log({"phase": "stack", "step": "commit", **rep["commit"]})
+    rep["commit"]["ledger"] = led.close()
     rep["cache_filter"] = {"lanes": len(pubs), "reps": reps,
                            "cold_s": [r["filter_s"] for r in runs["cold"]],
                            "cached_s": [r["filter_s"] for r in runs["cached"]],
@@ -1211,9 +1362,17 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     pubs, commits, expected, bare_s = window
     h0 = _counter(hits)
     ov0 = _hist("tendermint_dispatch_overlap_ratio", queue="default")
+    led = StepLedger("stack", "window")
     reset_counts()
     got = []
-    dt = timed(lambda: got.append(stack.verify_commits_async(pubs, commits, consumer="fastsync").result()), sync)
+    # once, under a trace context minted with every trace sampled: its
+    # `dispatch.launch` span carries the trace id its ledger record holds
+    tracectx.force_all(True)
+    ctx = tracectx.mint("chip_smoke")
+    with tracectx.use(ctx):
+        dt = timed(lambda: got.append(led.call(
+            lambda: stack.verify_commits_async(pubs, commits, consumer="fastsync").result())), sync)
+    tracectx.force_all(False)
     c = counts()
     check_mask("stack window", got[0], expected)
     if _counter(hits) != h0:
@@ -1221,53 +1380,102 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     _launched(c, ("madd_chain_fused", "finish_encode_compare"), "window")
     health.check("window")
     ov1 = _hist("tendermint_dispatch_overlap_ratio", queue="default")
+    traced = [r for r in led.records() if r.get("trace") == ctx.trace]
+    spans = spans_of("dispatch.launch").get(ctx.trace, [])
+    if len(traced) != 1 or len(spans) != 1:
+        raise AssertionError(f"stack window: {len(traced)} ledger records and {len(spans)} dispatch.launch spans "
+                             f"carry the window's trace id")
     rep["window"] = {"validators": len(pubs), "window": len(commits), "s": dt, "bare_warm_s_median": bare_s,
-                     "overlap_ratio": (ov1[0] - ov0[0]) / max(1, ov1[1] - ov0[1]), "launches": c}
+                     "overlap_ratio": (ov1[0] - ov0[0]) / max(1, ov1[1] - ov0[1]), "launches": c,
+                     "trace": ctx.trace, "span": spans[0], "record": traced[0]}
     log({"phase": "stack", "step": "window", **rep["window"]})
+    rep["window"]["ledger"] = led.close()
 
-    # 3. flat triples from STACK_CONSUMERS threads at once, coalesced
+    # 3. flat triples from STACK_CONSUMERS threads at once, coalesced:
+    # first through the stack, each consumer under a trace context of its
+    # own, so that each merged launch's `batcher.flush` span carries the
+    # trace id its ledger record holds; then the same work on a
+    # CoalescingVerifier of its own over the stack's resilient layer,
+    # whose locks time their contention (TENDERMINT_TPU_PROFILE_HZ makes
+    # them instrumentable; the stack's own stay plain, since the 10k
+    # commit's cache filter takes one a lane and the timing costs each)
     triples, expected, bare_s = flat
+    led = StepLedger("stack", "flat")
     per = len(triples) // STACK_CONSUMERS
     parts = [(triples[i * per:(i + 1) * per], expected[i * per:(i + 1) * per]) for i in range(STACK_CONSUMERS)]
-    flush0 = sum(_counter("tendermint_batcher_flush_total", reason=r) for r in ("window", "size", "barrier"))
-    h0 = _counter(hits)
-    outs = [None] * STACK_CONSUMERS
-    errors = []
-    start = threading.Barrier(STACK_CONSUMERS + 1)
 
-    def consumer(i):
-        try:
+    def flat_round(v, what: str, traced: bool):
+        """The consumers' calls on `v`, at once; (seconds, launches,
+        merged launches)."""
+        flushes0 = sum(_counter("tendermint_batcher_flush_total", reason=r) for r in ("window", "size", "barrier"))
+        h0 = _counter(hits)
+        outs = [None] * STACK_CONSUMERS
+        errors = []
+        start = threading.Barrier(STACK_CONSUMERS + 1)
+
+        def consumer(i):
+            try:
+                start.wait()
+                with tracectx.use(tracectx.mint(f"consumer{i}") if traced else None):
+                    outs[i] = v.verify_batch_async(parts[i][0], consumer=f"consumer{i}").result(timeout=300)
+            except Exception as e:  # reported below: the step fails
+                errors.append(e)
+
+        def run_consumers():
             start.wait()
-            outs[i] = stack.verify_batch_async(parts[i][0], consumer=f"consumer{i}").result(timeout=300)
-        except Exception as e:  # reported below: the step fails
-            errors.append(e)
+            for t in threads:
+                t.join(timeout=300)
 
-    reset_counts()
-    threads = [threading.Thread(target=consumer, args=(i,)) for i in range(STACK_CONSUMERS)]
-    for t in threads:
-        t.start()
-    sync()
-    t0 = time.perf_counter()
-    start.wait()
-    for t in threads:
-        t.join(timeout=300)
-    sync()
-    dt = time.perf_counter() - t0
-    c = counts()
-    if errors or any(t.is_alive() for t in threads):
-        raise AssertionError(f"stack flat: consumers failed: {errors}")
-    for i, (out, (_t, exp)) in enumerate(zip(outs, parts)):
-        check_mask(f"stack flat consumer {i}", out, exp)
-    if _counter(hits) != h0:
-        raise AssertionError("stack flat: the cache answered triples it never saw")
-    merged = int(sum(_counter("tendermint_batcher_flush_total", reason=r) for r in ("window", "size", "barrier")) - flush0)
-    if not 1 <= c["ladder"] <= STACK_CONSUMERS:
-        raise AssertionError(f"stack flat: {c['ladder']} ladder launches for {STACK_CONSUMERS} consumers")
-    _launched(c, ("ladder", "finish_encode_compare"), "flat")
+        reset_counts()
+        threads = [threading.Thread(target=consumer, args=(i,)) for i in range(STACK_CONSUMERS)]
+        for t in threads:
+            t.start()
+        sync()
+        t0 = time.perf_counter()
+        led.call(run_consumers)
+        sync()
+        dt = time.perf_counter() - t0
+        c = counts()
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"stack {what}: consumers failed: {errors}")
+        for i, (out, (_t, exp)) in enumerate(zip(outs, parts)):
+            check_mask(f"stack {what} consumer {i}", out, exp)
+        if _counter(hits) != h0:
+            raise AssertionError(f"stack {what}: the cache answered triples it never saw")
+        if not 1 <= c["ladder"] <= STACK_CONSUMERS:
+            raise AssertionError(f"stack {what}: {c['ladder']} ladder launches for {STACK_CONSUMERS} consumers")
+        _launched(c, ("ladder", "finish_encode_compare"), what)
+        merged = sum(_counter("tendermint_batcher_flush_total", reason=r) for r in ("window", "size", "barrier"))
+        return dt, c, int(merged - flushes0)
+
+    tracectx.force_all(True)
+    dt, c, merged = flat_round(stack, "flat", traced=True)
+    tracectx.force_all(False)
     health.check("flat")
+    flushes = spans_of("batcher.flush")
+    traced = [r for r in led.records() if r.get("trace")]
+    if not traced or any(len(flushes.get(r["trace"], [])) != 1 for r in traced):
+        raise AssertionError(f"stack flat: the merged launches' trace ids {[r.get('trace') for r in led.records()]} "
+                             f"have no batcher.flush span each")
     rep["flat"] = {"consumers": STACK_CONSUMERS, "lanes_each": per, "s": dt, "bare_warm_s_median": bare_s,
-                   "merged_launches": merged, "verifies_per_s": per * STACK_CONSUMERS / dt, "launches": c}
+                   "merged_launches": merged, "verifies_per_s": per * STACK_CONSUMERS / dt, "launches": c,
+                   "traced_launches": len(traced)}
     log({"phase": "stack", "step": "flat", **rep["flat"]})
+    os.environ["TENDERMINT_TPU_PROFILE_HZ"] = "0"
+    try:
+        cv = CoalescingVerifier(stack.inner)
+        lockrank.reset_contention()
+        lockrank.set_timing(True)
+        dt, c, merged = flat_round(cv, "flat (timed locks)", traced=False)
+        contention = {"s": dt, "merged_launches": merged, **lockrank.contention_snapshot(top=5)}
+    finally:
+        lockrank.set_timing(False)
+        os.environ.pop("TENDERMINT_TPU_PROFILE_HZ")
+    cv.coalescer.close()  # the resilient layer stays the stack's
+    health.check("flat (timed locks)")
+    rep["flat"]["contention"] = contention
+    log({"phase": "stack", "step": "flat_contention", **contention})
+    rep["flat"]["ledger"] = led.close()
 
     # 4. the fault drill, on a resilient verifier of its own. Its breaker
     # runs on a clock this step moves: a host-answered 512-lane call
@@ -1295,12 +1503,14 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     drill_rep: dict = {"validators": n, "calls": []}
     host_s = [0.0]
     t_phase = time.perf_counter()
+    led = StepLedger("stack", "faults")
+    t_wall = time.time()
 
     def call(what, keys, k=1, host=False):
         p, rows, exp = fresh(keys, k)
         reset_counts()
         t0 = time.perf_counter()
-        out = faulty.verify_commits(p, rows)
+        out = led.call(lambda: faulty.verify_commits(p, rows))
         sync()
         dt = time.perf_counter() - t0
         c = counts()
@@ -1351,17 +1561,24 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     if faulty.primary._build_breaker.snapshot()["total_failures"] != 2:
         raise AssertionError("stack faults: the table-build breaker did not count both faults")
     drill.check("table builds")  # the build degradations are the primary's own answers
+    # the black box holds the breaker's transitions, in order
+    moves = [(e["frm"], e["to"]) for e in FLIGHT.recent(kind="breaker") if e["t"] >= t_wall]
+    if moves != [(CLOSED, OPEN), (OPEN, "half_open"), ("half_open", CLOSED)]:
+        raise AssertionError(f"stack faults: the flight recorder holds the breaker transitions {moves}")
     drill_rep.update(trip_calls=trips, breaker=faulty.snapshot(),
                      table_breaker=faulty.primary._build_breaker.snapshot(),
-                     host_s=host_s[0], phase_s=time.perf_counter() - t_phase, breaker_clock="moved by the step")
+                     host_s=host_s[0], phase_s=time.perf_counter() - t_phase, breaker_clock="moved by the step",
+                     flight_breaker=moves)
     rep["faults"] = drill_rep
     log({"phase": "stack", "step": "faults", **{k: v for k, v in drill_rep.items() if k != "calls"}})
+    rep["faults"]["ledger"] = led.close()
 
     # 5. the hash plane through the resilient hasher
     txs, want_root, chunks = hashed
+    led = StepLedger("stack", "hash")
     reset_counts()
     t0 = time.perf_counter()
-    root = hasher.root_from_items(txs)
+    root = led.call(lambda: hasher.root_from_items(txs))
     sync()
     healthy_s = time.perf_counter() - t0
     c_ok = counts()
@@ -1372,7 +1589,7 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     f0 = hasher.breaker.snapshot()["total_failures"]
     fail.set_device_fault("hash", 1)
     reset_counts()
-    root = hasher.root_from_items(txs)
+    root = led.call(lambda: hasher.root_from_items(txs))
     c_fault = counts()
     fail.clear_device_faults()
     if root != want_root or hasher.breaker.snapshot()["total_failures"] != f0 + 1:
@@ -1382,7 +1599,7 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     health.check("faulted data_hash", {"hash": (0, 1)})
     reset_counts()
     t0 = time.perf_counter()
-    leaves = hasher.leaf_hashes_async(chunks).result()
+    leaves = led.call(lambda: hasher.leaf_hashes_async(chunks).result())
     leaves_s = time.perf_counter() - t0
     c_leaves = counts()
     if leaves != [hashlib.sha256(b"\x00" + ch).digest() for ch in chunks]:
@@ -1394,6 +1611,7 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     rep["hash"] = {"txs": len(txs), "data_hash_s": healthy_s, "launches": c_ok, "faulted_launches": c_fault,
                    "breaker": hasher.snapshot(), "chunks": len(chunks), "leaf_hashes_async_s": leaves_s}
     log({"phase": "stack", "step": "hash", **rep["hash"]})
+    rep["hash"]["ledger"] = led.close()
     # the registry's failure counters moved by exactly the injected faults
     injected = {"verify": faults_seen, "hash": 1}
     moved = {k: int(_counter(failures, kind=k) - failures0[k]) for k in injected}
@@ -1536,6 +1754,7 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
     from tendermint_tpu_torch.services.hasher import TreeHasher
     from tendermint_tpu_torch.services.resilient import ResilientVerifier
     from tendermint_tpu_torch.services.verifier import ShardedBatchVerifier, ShardedTableBatchVerifier
+    from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
     from tendermint_tpu_torch.utils import fail
 
     devices, layout = mesh_devices()
@@ -1563,20 +1782,21 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
     rep["table_build_s"] = timed(lambda: tv.tables_for(tuple(pubs)), sync)
     log({"phase": "mesh", "step": "setup", **rep})
 
-    def sharded(what, fn, check, launches_each: dict, bare_fn, bare: float) -> dict:
+    def sharded(what, fn, check, launches_each: dict, bare_fn, bare: float, led: StepLedger) -> dict:
         """One cold call, then MESH_REPS timed calls in turns with the
         bare backend's call on the same work, each checked; each mesh call
-        launches `launches_each` (one a shard for a sharded kernel)."""
+        launches `launches_each` (one a shard for a sharded kernel); every
+        call is held to its ledger records (`led`)."""
         outs = []
-        cold_s = timed(lambda: outs.append(fn()), sync)
-        bare_fn()  # its cold call, untimed
+        cold_s = timed(lambda: outs.append(led.call(fn)), sync)
+        led.call(bare_fn)  # its cold call, untimed
         c = dict.fromkeys(counts(), 0)
         warm, here = [], []
         for _ in range(MESH_REPS):
             reset_counts()
-            warm.append(timed(lambda: outs.append(fn()), sync))
+            warm.append(timed(lambda: outs.append(led.call(fn)), sync))
             c = {name: c[name] + v for name, v in counts().items()}
-            here.append(timed(bare_fn, sync))
+            here.append(timed(lambda: led.call(bare_fn), sync))
         for out in outs:
             check(out)
         want = {name: each * MESH_REPS for name, each in launches_each.items()}
@@ -1594,9 +1814,13 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
     # 1. the 10k commit: N/4 columns a shard, the entries chain a shard
     n = len(pubs)
     miss0, hit0 = _counter(placements, result="miss"), _counter(placements, result="hit")
+    led = StepLedger("mesh", "commit")
     rep["commit"] = sharded("commit", lambda: tv.verify_commits(pubs, commits), mask_of("commit", expected[None, :]),
                             {"madd_chain_entries": MESH_SHARDS, "finish_encode_compare": MESH_SHARDS},
-                            lambda: bare.verify_commits(pubs, commits), bare_s)
+                            lambda: bare.verify_commits(pubs, commits), bare_s, led)
+    # the placement-cache miss shipped the 10k set's table columns: its
+    # bytes are on the cold call's ledger record
+    shipped = max(r.get("transfer_bytes", 0) for r in led.records())
     placed = tv._sharded_tables[(tv._cache_key(tuple(pubs)), mesh.active_devices())]
     rep["commit"]["placed_bytes"] = [t.numel() * t.element_size() for t in placed]
     if [t.shape[3] for t in placed] != [n // MESH_SHARDS] * MESH_SHARDS or [t.device for t in placed] != devices:
@@ -1604,33 +1828,40 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
     moved = (_counter(placements, result="miss") - miss0, _counter(placements, result="hit") - hit0)
     if moved != (1, MESH_REPS):
         raise AssertionError(f"mesh commit: placement cache (misses, hits) {moved}, expected (1, {MESH_REPS})")
+    if shipped < sum(rep["commit"]["placed_bytes"]):
+        raise AssertionError(f"mesh commit: the ledger's largest transfer {shipped} B is under the placed tables'")
     health.check("commit")
+    rep["commit"]["ledger"] = led.close()
 
     # 2. the fast-sync window: N/4 columns a shard, the fused chain a shard
     pubs3, commits3, expected3, bare3 = window
+    led = StepLedger("mesh", "window")
     rep["window"] = sharded("window", lambda: tv.verify_commits(pubs3, commits3), mask_of("window", expected3),
                             {"madd_chain_fused": MESH_SHARDS, "finish_encode_compare": MESH_SHARDS},
-                            lambda: bare.verify_commits(pubs3, commits3), bare3)
+                            lambda: bare.verify_commits(pubs3, commits3), bare3, led)
     rep["window"]["commits_per_s"] = len(commits3) / rep["window"]["s_median"]
     health.check("window")
+    rep["window"]["ledger"] = led.close()
 
     # 3. the flat batch: 1,024 lanes a shard on the ladder, then its tally
     triples, expected4, bare4 = flat
     nf = len(triples)
     if bucket_size(-(-nf // MESH_SHARDS)) * MESH_SHARDS != nf:
         raise AssertionError(f"mesh flat: {nf} lanes do not fill {MESH_SHARDS} shard buckets")
+    led = StepLedger("mesh", "flat")
     rep["flat"] = sharded("flat", lambda: fv.verify_batch(triples), mask_of("flat", expected4),
                           {"ladder": MESH_SHARDS, "finish_encode_compare": MESH_SHARDS},
-                          lambda: bare.verify_batch(triples), bare4)
+                          lambda: bare.verify_batch(triples), bare4, led)
     rep["flat"]["verifies_per_s"] = nf / rep["flat"]["s_median"]
     powers = np.random.default_rng(inp.seed).integers(1, 1000, nf).astype(np.int32)
-    mask, tally = fv.verify_batch_with_powers(triples, powers)
+    mask, tally = led.call(lambda: fv.verify_batch_with_powers(triples, powers))
     check_mask("mesh flat tally", mask, expected4)
     want_tally = int(powers[expected4].sum())
     if tally != want_tally:
         raise AssertionError(f"mesh flat tally: {tally}, the host sum over the expected mask is {want_tally}")
     rep["flat"]["tally"] = tally
     health.check("flat")
+    rep["flat"]["ledger"] = led.close()
 
     # 4. zero rows verify false and tally 0 (the padding relies on it)
     zeros = np.zeros((64, 32), dtype=np.uint8)
@@ -1643,12 +1874,14 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
                              f"{c['ladder']} ladder launches")
     rep["zero_rows"] = {"rows": 64, "true": 0, "tally": 0, "launches": c}
     log({"phase": "mesh", "step": "zero_rows", **rep["zero_rows"]})
+    drop_stale_record()
 
     # 5. data_hash through TreeHasher(mesh=): the leaf pass a shard, the
     # levels on the first card; roots bit-equal to phase 5's
     txs, roots, bare_hash = hashed
     levels = len(txs).bit_length() - 1
     rep["data_hash"] = {}
+    led = StepLedger("mesh", "data_hash")
     for algo in ("sha256", "ripemd160"):
         th = TreeHasher(algo=algo, mesh=mesh)
         one = TreeHasher(algo=algo, device=devices[0])
@@ -1659,15 +1892,17 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
 
         rep["data_hash"][algo] = sharded(f"data_hash {algo}", lambda: th.root_from_items(txs), same_root,
                                          {LEAF_KERNEL[algo]: MESH_SHARDS, "merkle_level": levels},
-                                         lambda: one.root_from_items(txs), bare_hash[algo])
+                                         lambda: one.root_from_items(txs), bare_hash[algo], led)
     reset_counts()
-    leaves = TreeHasher(mesh=mesh).leaf_hashes(txs)
+    leaves = led.call(lambda: TreeHasher(mesh=mesh).leaf_hashes(txs))
     c = counts()
     if leaves != [hashlib.sha256(b"\x00" + tx).digest() for tx in txs] or c["sha256_masked"] != MESH_SHARDS:
         raise AssertionError(f"mesh leaf_hashes: differ from hashlib or launched {c['sha256_masked']} times")
     health.check("data_hash")
+    rep["data_hash"]["ledger"] = led.close()
     rep["stages"] = {"commit": mesh_stage_times(tv, pubs, commits, sync),
                      "window": mesh_stage_times(tv, pubs3, commits3, sync)}
+    drop_stale_record()
     log({"phase": "mesh", "step": "stages", **rep["stages"]})
 
     rep["per_device_state"] = device_state(devices)
@@ -1676,18 +1911,20 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
     # the window and the 10k commit on the one-card path (N % 3 != 0);
     # the full mesh back after the re-probe window
     drill: dict = {}
+    led = StepLedger("mesh", "faults")
+    t_wall = time.time()
     fail.set_device_fault("shard2")
     reset_counts()
-    check_mask("mesh faulted flat", fv.verify_batch(triples), expected4)
+    check_mask("mesh faulted flat", led.call(lambda: fv.verify_batch(triples)), expected4)
     c_flat = counts()
     if mesh.active_indices() != (0, 1, 3) or c_flat["ladder"] != MESH_SHARDS - 1:
         raise AssertionError(f"mesh faults: active {mesh.active_indices()}, {c_flat['ladder']} ladder launches")
     health.check("shard fault", shard_faults=1, shrinks=1)
     reset_counts()
-    check_mask("mesh faulted window", tv.verify_commits(pubs3, commits3), expected3)
+    check_mask("mesh faulted window", led.call(lambda: tv.verify_commits(pubs3, commits3)), expected3)
     c_win = counts()
     reset_counts()
-    check_mask("mesh faulted commit", tv.verify_commits(pubs, commits), expected[None, :])
+    check_mask("mesh faulted commit", led.call(lambda: tv.verify_commits(pubs, commits)), expected[None, :])
     c_commit = counts()
     if c_win["madd_chain_fused"] != 1 or c_commit["madd_chain_entries"] != 1:
         raise AssertionError(f"mesh faults: the one-card path launched {c_win}, {c_commit}")
@@ -1695,7 +1932,7 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
     fail.clear_device_faults()
     time.sleep(MESH_REPROBE_S * 1.5)
     reset_counts()
-    check_mask("mesh restored flat", fv.verify_batch(triples), expected4)
+    check_mask("mesh restored flat", led.call(lambda: fv.verify_batch(triples)), expected4)
     c_back = counts()
     if mesh.n_active != MESH_SHARDS or c_back["ladder"] != MESH_SHARDS:
         raise AssertionError(f"mesh faults: {mesh.n_active} active after the re-probe, {c_back['ladder']} launches")
@@ -1714,7 +1951,7 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
         fail.set_device_fault(f"shard{i}")
     reset_counts()
     t0 = time.perf_counter()
-    out = rv.verify_commits(p5, [(m5, s5)])
+    out = led.call(lambda: rv.verify_commits(p5, [(m5, s5)]))
     host_s = time.perf_counter() - t0
     c = counts()
     fail.clear_device_faults()
@@ -1724,8 +1961,16 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
         raise AssertionError(f"mesh exhaustion: active {mesh5.n_active}, breaker {snap}, launches {c}")
     health.check("exhaustion", shard_faults=MESH_SHARDS, shrinks=MESH_SHARDS - 1, verify_fallbacks=1)
     drill["exhausted"] = {"validators": MESH_EXHAUST_KEYS, "host_s": host_s, "breaker": snap}
+    # the black box holds the drill: shard 2 out and back, then every
+    # shard of the exhaustion set out
+    events = [(e["event"], e.get("shard"), e.get("recovered")) for e in FLIGHT.recent(kind="mesh") if e["t"] >= t_wall]
+    want = [("shard_fault", 2, None), ("restore", None, [2])] + [("shard_fault", i, None) for i in range(MESH_SHARDS)]
+    if events != want:
+        raise AssertionError(f"mesh faults: the flight recorder holds the mesh events {events}, expected {want}")
+    drill["flight_mesh"] = events
     rep["faults"] = drill
     log({"phase": "mesh", "step": "faults", **drill})
+    rep["faults"]["ledger"] = led.close()
 
     # 7. the multi-host seam in one process, over every visible card
     dist.initialize()
@@ -1745,6 +1990,7 @@ def run_mesh(inp, bare, commit, window, flat, hashed) -> dict:
                              f"over {gm.n_active} cards")
     rep["seam"] = {"cards": gm.n_active, "lanes": cut, "tally": int(total), "launches": c}
     log({"phase": "mesh", "step": "seam", **rep["seam"]})
+    drop_stale_record()
     tv.close()
     return rep
 
@@ -2176,14 +2422,18 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 2
     try:
+        attach_telemetry()
         report = run_mesh_only(args) if args.mesh_only else run(args)
+        report["metrics"] = dump_metrics()
     except Exception:
         traceback.print_exc()
+        from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
+
+        print(f"chip_smoke: flight recorder dumped to {FLIGHT.dump('chip_smoke-failure', dir=str(OUT))}",
+              file=sys.stderr)
         return 1
-    out = pathlib.Path("chiprun_out")
     try:
-        out.mkdir(exist_ok=True)
-        (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+        (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     except OSError:
         pass
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -48,6 +48,7 @@ from tendermint_tpu_torch.ops.sha256_kernel import (
     to_words,
     words64,
 )
+from tendermint_tpu_torch.telemetry import launchlog as _launchlog
 
 ALGO_CODES = {"sha256": 0, "ripemd160": 1}
 WIDTHS = {"sha256": 8, "ripemd160": 5}
@@ -297,7 +298,14 @@ def _sharded_leaves(items: list[bytes], algo: str, manager):
             if manager.executor == "host":
                 return None
             (b_pad, n_pad), n = pad_rows_to_multiple([blocks, n_blocks], manager.n_active)
-            return manager.leaf_hash_step(algo)(b_pad, n_pad), n
+            parts = manager.leaf_hash_step(algo)(b_pad, n_pad)
+            # the lane's pad rows and shipped block bytes, on the
+            # successful attempt only (a shard-fault retry must not
+            # count twice)
+            _launchlog.annotate(_additive=True, rows_padded=b_pad.shape[0] - n)
+            _launchlog.annotate(mesh_width=manager.n_active)
+            _launchlog.add_transfer(b_pad.nbytes + n_pad.nbytes)
+            return parts, n
         except ShardDeviceFault as e:
             if not manager.record_shard_fault(e.shard):
                 raise MeshExhaustedError(f"all {manager.n_total} mesh devices faulted") from e

@@ -47,7 +47,10 @@ from tendermint_tpu_torch.ops.ed25519_ladder import verify_kernel_ladder
 from tendermint_tpu_torch.ops.ed25519_tables import A_NWIN, verify_tables_kernel
 from tendermint_tpu_torch.ops.merkle_kernel import ALGO_CODES, _leaf_kernel
 from tendermint_tpu_torch.ops.sha256_kernel import to_words
+from tendermint_tpu_torch.telemetry import launchlog as _launchlog
 from tendermint_tpu_torch.telemetry import metrics as _metrics
+from tendermint_tpu_torch.telemetry import tracectx as _tracectx
+from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
 from tendermint_tpu_torch.utils.fail import shard_fail_point, shard_fault_armed
 from tendermint_tpu_torch.utils.log import kv, logger
 
@@ -423,6 +426,10 @@ class MeshManager:
             if survivors > 0:
                 _metrics.MESH_REMESH.labels(direction="shrink").inc()
             self._bind_gauge()
+        # a mesh transition is a forensic moment: black-box it and sample
+        # every trace for a window (the breakers' policy)
+        FLIGHT.record("mesh", event="shard_fault", shard=shard, survivors=survivors)
+        _tracectx.boost()
         kv(
             logger("mesh"),
             logging.WARNING,
@@ -451,6 +458,7 @@ class MeshManager:
             self._excluded -= recovered
             _metrics.MESH_REMESH.labels(direction="restore").inc()
             self._bind_gauge()
+        FLIGHT.record("mesh", event="restore", recovered=sorted(recovered), active=self.n_active)
 
     def reset(self) -> None:
         """Forget all exclusions (tests)."""
@@ -478,11 +486,16 @@ class MeshManager:
                     _COMPILES_IN_PROGRESS -= 1
                 warm_s = time.perf_counter() - t0
                 _STEP_CACHE[key] = step
+        # outside the lock: a miss stalls its launch for the whole
+        # warm-up, and the launch's ledger record carries the cost
         if warm_s is None:
             _metrics.MESH_COMPILE.labels(result="hit").inc()
+            _launchlog.annotate(compile="hit")
         else:
             _metrics.MESH_COMPILE.labels(result="miss").inc()
             _metrics.MESH_COMPILE_SECONDS.observe(warm_s)
+            _launchlog.annotate(compile="miss")
+            _launchlog.annotate(_additive=True, compile_s=warm_s)
         return self._tallied(step)
 
     def _tallied(self, step):

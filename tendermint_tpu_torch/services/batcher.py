@@ -22,7 +22,11 @@ both costs:
   verdict back out. Requests flush round-robin across consumers so one
   hot consumer cannot starve the rest, and per-consumer submission order
   is preserved. The flush window adapts from the launch:apply ratio the
-  dispatch telemetry already measures.
+  dispatch telemetry already measures. Each flush leaves a
+  `coalescer_flush` flight event and tags its launch's ledger record
+  with the consumer mix, the rows the cache withheld and the request
+  count; a flush holding a traced request records a `batcher.flush`
+  span and launches under that request's trace context.
 
 Env knobs (all optional):
   TENDERMINT_TPU_VERIFY_CACHE_SIZE   proven triples kept (65536; 0 off)
@@ -44,7 +48,11 @@ from typing import Callable, Sequence
 import numpy as np
 
 from tendermint_tpu_torch.services.verifier import BatchVerifier, Triple
+from tendermint_tpu_torch.telemetry import TRACER
+from tendermint_tpu_torch.telemetry import launchlog as _launchlog
 from tendermint_tpu_torch.telemetry import metrics as _metrics
+from tendermint_tpu_torch.telemetry import tracectx as _trace
+from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
 from tendermint_tpu_torch.utils import shutdown
 from tendermint_tpu_torch.utils.lockrank import ranked_lock
 
@@ -98,8 +106,8 @@ class VerifiedSigCache:
         per_shard = max(1, self.capacity // self.SHARDS)
         self._per_shard = per_shard
         self._shards = [
-            (ranked_lock("batcher.shard"), OrderedDict())
-            for _ in range(self.SHARDS)
+            (ranked_lock("batcher.shard", seq=i), OrderedDict())
+            for i in range(self.SHARDS)
         ]
         self.enabled = self.capacity > 0
 
@@ -179,9 +187,10 @@ class _Request:
         "error",
         "submitted_at",
         "flushed",
+        "ctx",
     )
 
-    def __init__(self, consumer, out, novel, novel_pos, novel_keys):
+    def __init__(self, consumer, out, novel, novel_pos, novel_keys, ctx=None):
         self.consumer = consumer
         self.out = out
         self.novel = novel
@@ -191,6 +200,7 @@ class _Request:
         self.error: BaseException | None = None
         self.submitted_at = time.perf_counter()
         self.flushed = False
+        self.ctx = ctx  # the submitting thread's trace context
 
 
 class SubHandle:
@@ -357,7 +367,7 @@ class VerifyCoalescer:
             novel.append((pk, msg, sig))
             novel_pos.append(i)
             novel_keys.append(key)
-        req = _Request(consumer, out, novel, novel_pos, novel_keys)
+        req = _Request(consumer, out, novel, novel_pos, novel_keys, ctx=_trace.current())
         if not novel:
             req.flushed = True
             req.event.set()
@@ -472,16 +482,42 @@ class VerifyCoalescer:
         merged: list[Triple] = []
         for req in batch:
             merged.extend(req.novel)
+        # one exemplar trace context per merged launch (the oldest traced
+        # request's): the flush span links the aggregate back to it, and
+        # launching with it ambient carries it into the dispatch handle
+        exemplar = next((r.ctx for r in batch if r.ctx is not None), None)
+        FLIGHT.record("coalescer_flush", reason=reason, requests=len(batch), triples=len(merged))
+        if exemplar is not None:
+            wall_now = time.time()
+            oldest = min(req.submitted_at for req in batch)
+            TRACER.add(
+                "batcher.flush",
+                wall_now - (now - oldest),
+                wall_now,
+                trace=exemplar.trace,
+                reason=reason,
+                requests=len(batch),
+                triples=len(merged),
+            )
+        # the flush-level facts only the coalescer knows, captured by the
+        # dispatch handle at submit: consumer mix, rows the cache
+        # withheld from this launch, request count
+        consumer_rows: dict[str, int] = {}
+        cached_rows = 0
+        for req in batch:
+            consumer_rows[req.consumer] = consumer_rows.get(req.consumer, 0) + len(req.novel)
+            cached_rows += len(req.out) - len(req.novel)
         try:
-            if hasattr(self._verifier, "verify_batch_async"):
-                handle = self._verifier.verify_batch_async(
-                    merged, queue=self._queue
-                )
-            else:
-                handle = self._queue.submit(
-                    lambda m=merged: self._verifier.verify_batch(m),
-                    kind="verify",
-                )
+            with _launchlog.tag(
+                consumers=consumer_rows, rows_cached=cached_rows, requests=len(batch)
+            ), _trace.use(exemplar):
+                if hasattr(self._verifier, "verify_batch_async"):
+                    handle = self._verifier.verify_batch_async(merged, queue=self._queue)
+                else:
+                    handle = self._queue.submit(
+                        lambda m=merged: self._verifier.verify_batch(m),
+                        kind="verify",
+                    )
         except BaseException as e:  # dispatch-layer failure: fail the batch
             for req in batch:
                 req.error = e
@@ -717,9 +753,10 @@ class CoalescingVerifier(BatchVerifier):
         if not any_novel:
             return cached
         if hasattr(self.inner, "verify_commits"):
-            grid = self.inner.verify_commits(
-                pubkeys, filtered, force_fused=force_fused
-            )
+            # the withheld lanes never reach the card: the launch record
+            # carries how many the cache saved it
+            with _launchlog.tag(rows_cached=int(cached.sum())):
+                grid = self.inner.verify_commits(pubkeys, filtered, force_fused=force_fused)
             return self._merge_grid(grid, cached, novel_lanes)
         return self._flat_lane_grid(
             pubkeys, filtered, cached, novel_lanes, "default"
@@ -740,9 +777,10 @@ class CoalescingVerifier(BatchVerifier):
         if not any_novel:
             return CompletedHandle(cached)
         if hasattr(self.inner, "verify_commits_async"):
-            handle = self.inner.verify_commits_async(
-                pubkeys, filtered, queue=queue, force_fused=force_fused
-            )
+            with _launchlog.tag(rows_cached=int(cached.sum())):
+                handle = self.inner.verify_commits_async(
+                    pubkeys, filtered, queue=queue, force_fused=force_fused
+                )
             return handle.then(
                 lambda grid: self._merge_grid(grid, cached, novel_lanes)
             )

@@ -28,7 +28,11 @@ Telemetry: `tendermint_dispatch_inflight{queue=}`,
 `tendermint_dispatch_queue_wait_seconds` and
 `tendermint_dispatch_overlap_ratio` — the share of a handle's
 submit->join wall time the consumer spent on other work rather than
-blocked inside `result()`.
+blocked inside `result()`. Each handle of a queue with `launch_ledger`
+(the default) carries one launch-ledger record, opened on the worker
+and committed at the consumer's join (`telemetry/launchlog.py`); every
+launch leaves a `dispatch_launch` flight event, and a handle submitted
+under a trace context records a `dispatch.launch` span against it.
 """
 
 from __future__ import annotations
@@ -39,7 +43,11 @@ import threading
 import time
 from typing import Callable
 
+from tendermint_tpu_torch.telemetry import TRACER
+from tendermint_tpu_torch.telemetry import launchlog as _launchlog
 from tendermint_tpu_torch.telemetry import metrics as _metrics
+from tendermint_tpu_torch.telemetry import tracectx as _trace
+from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
 from tendermint_tpu_torch.utils import shutdown
 from tendermint_tpu_torch.utils.lockrank import ranked_lock
 
@@ -80,6 +88,10 @@ class VerifyHandle:
         "_lock",
         "_submitted_at",
         "_launched_at",
+        "_ctx",
+        "_submitted_wall",
+        "_launch_rec",
+        "_launch_tags",
     )
 
     def __init__(self, queue: "DispatchQueue", launch_fn, finalize_fn, kind: str):
@@ -96,6 +108,14 @@ class VerifyHandle:
         self._lock = ranked_lock("dispatch.handle")
         self._submitted_at = time.perf_counter()
         self._launched_at: float | None = None
+        # trace context ambient on the SUBMITTING thread: the worker
+        # records a `dispatch.launch` span against it (sampled only)
+        self._ctx = _trace.current()
+        self._submitted_wall = time.time() if self._ctx is not None else 0.0
+        # launch-ledger tags ambient at submit (the coalescer's consumer
+        # mix and cached rows cross threads here, like _ctx)
+        self._launch_rec = None
+        self._launch_tags = _launchlog.current_tags() if queue.launch_ledger else None
 
     # -- worker side -------------------------------------------------------
 
@@ -104,15 +124,45 @@ class VerifyHandle:
         _metrics.DISPATCH_QUEUE_WAIT.labels(queue=self._queue.name).observe(
             self._launched_at - self._submitted_at
         )
+        # one ledger record per dispatch unit: opened here so that the
+        # backend's prep and launch code annotates it, committed at the
+        # consumer's join
+        rec = None
+        if self._queue.launch_ledger:
+            rec = _launchlog.begin(kind=self.kind, queue=self._queue.name, tags=self._launch_tags)
+        if rec is not None:
+            rec["queue_wait_s"] = self._launched_at - self._submitted_at
+            if self._ctx is not None:
+                rec["trace"] = self._ctx.trace
         try:
             # torch work that an exiting interpreter waits for
             # (`utils/shutdown.py`); refused once it is exiting
-            with shutdown.section():
+            with shutdown.section(), _trace.use(self._ctx):
                 self._launched = self._launch_fn()
         except BaseException as e:  # delivered at result(), never lost
             self._launch_exc = e
         finally:
+            if rec is not None:
+                now = time.perf_counter()
+                rec["host_prep_s"] = now - self._launched_at
+                rec["_t_launch_end"] = now
+                self._launch_rec = _launchlog.detach(rec)
             self._launch_fn = None  # drop closed-over prep data promptly
+            FLIGHT.record(
+                "dispatch_launch",
+                queue=self._queue.name,
+                work=self.kind,
+                error=type(self._launch_exc).__name__ if self._launch_exc is not None else "",
+            )
+            if self._ctx is not None:
+                TRACER.add(
+                    "dispatch.launch",
+                    self._submitted_wall,
+                    time.time(),
+                    trace=self._ctx.trace,
+                    queue=self._queue.name,
+                    kind=self.kind,
+                )
             self._event.set()
 
     # -- consumer side -----------------------------------------------------
@@ -136,6 +186,13 @@ class VerifyHandle:
         with self._lock:
             if not self._finalized:
                 self._finalized = True
+                rec, self._launch_rec = self._launch_rec, None
+                t_fin0 = time.perf_counter()
+                if rec is not None:
+                    # in flight: launch end on the worker -> the consumer
+                    # reaches the join (the window the pipeline hides)
+                    rec["in_flight_s"] = max(0.0, t_fin0 - rec.get("_t_launch_end", t_fin0))
+                    _launchlog.reattach(rec)
                 try:
                     if self._launch_exc is not None:
                         raise self._launch_exc
@@ -149,6 +206,10 @@ class VerifyHandle:
                     self._launched = None
                     self._finalize_fn = None
                     now = time.perf_counter()
+                    if rec is not None:
+                        rec["finalize_s"] = now - t_fin0
+                        rec["total_s"] = now - self._submitted_at
+                        _launchlog.commit(rec, error=self._exc)
                     blocked = now - t_join
                     total = now - self._submitted_at
                     if total > 0:
@@ -248,8 +309,11 @@ class DispatchQueue:
     backpressure that keeps device memory and launch backlog bounded.
     """
 
-    def __init__(self, depth: int | None = None, name: str = "default") -> None:
+    def __init__(self, depth: int | None = None, name: str = "default", launch_ledger: bool = True) -> None:
         self.name = name
+        # False = this queue carries host-side work, which must not mint
+        # device launch-ledger records
+        self.launch_ledger = launch_ledger
         self.depth = max(1, DISPATCH_DEPTH if depth is None else depth)
         self._sem = threading.Semaphore(self.depth)
         self._work: "queue_mod.SimpleQueue" = queue_mod.SimpleQueue()
@@ -349,8 +413,7 @@ def measured_launch_apply_ratio(queue: str | None = None) -> float | None:
 
 
 _DEFAULT_QUEUE: DispatchQueue | None = None
-# a plain lock: taken at import, where a lock knob cannot be refused yet
-_DEFAULT_LOCK = threading.Lock()
+_DEFAULT_LOCK = ranked_lock("dispatch.global")
 
 
 def default_dispatch_queue() -> DispatchQueue:

@@ -29,12 +29,16 @@ import torch
 
 from tendermint_tpu_torch.device import resolve_device
 from tendermint_tpu_torch.merkle import simple as host_merkle
+from tendermint_tpu_torch.telemetry import launchlog as _launchlog
 from tendermint_tpu_torch.telemetry import metrics as _metrics
 
 
-def _observe_hash(backend: str, leaves: int, seconds: float) -> None:
+def _observe_hash(backend: str, leaves: int, seconds: float, kind: str = "hash") -> None:
     _metrics.HASH_BATCH_LEAVES.labels(backend=backend).observe(leaves)
     _metrics.HASH_SECONDS.labels(backend=backend).observe(seconds)
+    # closes or annotates the ambient launch record (host roots outside
+    # a dispatch handle record nothing)
+    _launchlog.observe(kind, backend, leaves, seconds)
 
 # Below this leaf count the host's hashlib tree answers. On the H100 the
 # card's tree of 250-byte leaves beat the host's from 1,024 leaves and
@@ -128,16 +132,16 @@ class TreeHasher:
             from tendermint_tpu_torch.ops.merkle_kernel import leaf_hashes_sharded
 
             out = leaf_hashes_sharded(items, self.algo, self.mesh)
-            _observe_hash("mesh", len(items), time.perf_counter() - t0)
+            _observe_hash("mesh", len(items), time.perf_counter() - t0, kind="leaf_hashes")
             return out
         if self._use_device(len(items)):
             from tendermint_tpu_torch.ops.merkle_kernel import leaf_hashes_device
 
             out = leaf_hashes_device(items, self.algo, self.device)
-            _observe_hash("device", len(items), time.perf_counter() - t0)
+            _observe_hash("device", len(items), time.perf_counter() - t0, kind="leaf_hashes")
             return out
         out = [host_merkle.leaf_hash(x, self.algo) for x in items]
-        _observe_hash("host", len(items), time.perf_counter() - t0)
+        _observe_hash("host", len(items), time.perf_counter() - t0, kind="leaf_hashes")
         return out
 
     def leaf_hashes_async(self, items: list[bytes], queue=None):

@@ -25,7 +25,9 @@ fault degrades to a build on the CPU (small sets) or to host crypto.
 
 Every backend also has the async surface of `services/dispatch.py`
 (`verify_batch_async`, and `verify_commits_async` on the table backend),
-and reports its calls to the metric catalog (`telemetry/`).
+and reports its calls to the metric catalog and the launch ledger
+(`telemetry/`): padded rows, mesh width and host->device bytes at the
+launch, the executing backend and its rows at the finalize.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from tendermint_tpu_torch.parallel.mesh import (
     shard_lanes_validator_major,
     unshard_lanes_validator_major,
 )
+from tendermint_tpu_torch.telemetry import launchlog as _launchlog
 from tendermint_tpu_torch.telemetry import metrics as _metrics
 from tendermint_tpu_torch.utils import shutdown
 from tendermint_tpu_torch.utils.circuit import CircuitBreaker
@@ -74,13 +77,19 @@ from tendermint_tpu_torch.utils.log import kv, logger
 Triple = tuple[bytes, bytes, bytes]  # (pubkey32, message, signature64)
 
 
-def _observe_verify(backend: str, n: int, seconds: float) -> None:
+def _observe_verify(backend: str, n: int, seconds: float, kind: str = "verify") -> None:
     """One verify call's worth of telemetry. Each executing backend
     reports itself, so a resilient host fallback shows up under
     backend="host" while the failed device attempt stays with the
-    dispatch-failure counters."""
+    dispatch-failure counters. Also annotates or closes the ambient
+    launch-ledger record; the table paths pass kind="tables"."""
     _metrics.VERIFY_BATCH_SIZE.labels(backend=backend).observe(n)
     _metrics.VERIFY_SECONDS.labels(backend=backend).observe(seconds)
+    _launchlog.observe(kind, backend, n, seconds)
+
+
+def _nbytes(arrays) -> int:
+    return int(sum(a.nbytes for a in arrays))
 
 
 class BatchVerifier:
@@ -192,6 +201,11 @@ class DeviceBatchVerifier(BatchVerifier):
         launched = launch_batch_verify(
             list(pubs), list(msgs), list(sigs), device=self.device
         )
+        # the launch pads to the power-of-two bucket and ships four
+        # (size, 32) uint8 arrays
+        size = bucket_size(len(triples))
+        _launchlog.annotate(_additive=True, rows_padded=size - len(triples))
+        _launchlog.add_transfer(4 * size * 32)
         return ("device", launched, t0)
 
     def finalize_verify_batch(self, launched) -> np.ndarray:
@@ -465,6 +479,9 @@ class TableBatchVerifier(DeviceBatchVerifier):
         impl = {None: "auto", True: "fused", False: "entries"}[force_fused]
         t0 = time.perf_counter()
         s, h, r, precheck = prepare_commit_lanes(pubkeys, commits)
+        # one launch over the K x N lanes: no commit padding
+        _launchlog.annotate(_additive=True, rows_padded=0)
+        _launchlog.add_transfer(_nbytes((s, h, r)))
         s, h, r = (torch.from_numpy(a).to(self.device) for a in (s, h, r))
         dev = verify_tables_kernel(tables, s, h, r, impl=impl)
         return ("device", dev, precheck, key_ok, n, k, t0)
@@ -474,7 +491,7 @@ class TableBatchVerifier(DeviceBatchVerifier):
             return launched[1]
         _tag, dev, precheck, key_ok, n, k, t0 = launched
         out = dev.cpu().numpy() & precheck & np.tile(key_ok, k)
-        _observe_verify("tables", k * n, time.perf_counter() - t0)
+        _observe_verify("tables", k * n, time.perf_counter() - t0, kind="tables")
         return out.reshape(k, n)
 
     def verify_commits_async(
@@ -540,7 +557,14 @@ class _MeshFlatMixin:
             try:
                 m.check_shard_faults()
                 size = bucket_size(-(-n // ndev)) * ndev
-                return m.verify_step()(*pad_rows_to([pub, r, s, h, powers], size))
+                arrs = pad_rows_to([pub, r, s, h, powers], size)
+                out = m.verify_step()(*arrs)
+                # annotated on the successful attempt only: a shard fault
+                # retried onto the survivors must not count twice
+                _launchlog.annotate(_additive=True, rows_padded=size - n)
+                _launchlog.annotate(mesh_width=ndev)
+                _launchlog.add_transfer(_nbytes(arrs))
+                return out
             except ShardDeviceFault as e:
                 if not m.record_shard_fault(e.shard):
                     raise MeshExhaustedError(f"all {m.n_total} mesh devices faulted") from e
@@ -714,10 +738,15 @@ class ShardedTableBatchVerifier(_MeshFlatMixin, TableBatchVerifier):
             return hit, key_ok
         _metrics.TABLE_DEVICE_CACHE.labels(result="miss").inc()
         per = tables.shape[3] // len(devices)
+        t_put = time.perf_counter()
         placed = [
             tables[..., i * per : (i + 1) * per].contiguous().to(dev)
             for i, dev in enumerate(devices)
         ]
+        # the copy every placement-cache miss pays: its bytes and its
+        # stall land on this launch's ledger record
+        _launchlog.add_transfer(tables.element_size() * tables.nelement())
+        _launchlog.annotate(_additive=True, device_put_s=time.perf_counter() - t_put)
         with self._cache_lock:
             self._sharded_tables[key] = placed
             while len(self._sharded_tables) > self._cache_size * 2:
@@ -769,6 +798,9 @@ class ShardedTableBatchVerifier(_MeshFlatMixin, TableBatchVerifier):
         powers = np.ones(k * n, dtype=np.int32)
         lanes = shard_lanes_validator_major([s, h, r, lane_ok, powers], n, ndev)
         ok, _total = self.mesh.tables_step()(tables, *lanes, impl=impl)
+        _launchlog.annotate(_additive=True, rows_padded=0)
+        _launchlog.add_transfer(_nbytes(lanes))
+        _launchlog.annotate(mesh_width=ndev)
         return ("mesh_tables", ok, ndev, k, n, t0)
 
     def finalize_verify_commits(self, launched) -> np.ndarray:
@@ -778,7 +810,7 @@ class ShardedTableBatchVerifier(_MeshFlatMixin, TableBatchVerifier):
             return super().finalize_verify_commits(launched)
         _tag, ok, ndev, k, n, t0 = launched
         lanes = unshard_lanes_validator_major(gather_verdicts(ok), n, ndev)
-        _observe_verify("mesh", k * n, time.perf_counter() - t0)
+        _observe_verify("mesh", k * n, time.perf_counter() - t0, kind="tables")
         return lanes.reshape(k, n)
 
 

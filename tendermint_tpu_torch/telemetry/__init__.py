@@ -1,12 +1,57 @@
-"""Telemetry of the port's verify spine: the metric registry and the
-metric catalog (`metrics.py`).
+"""Telemetry of the port's device plane: the metric registry and its
+catalog (`metrics.py`), the span tracer and its JSONL span log, trace
+contexts (`tracectx.py`), the flight recorder (`flightrec.py`) and the
+per-launch ledger (`launchlog.py`).
 
-Counterpart of the pieces of `tendermint_tpu/telemetry/` that the
-services layer calls, under the same metric names and label sets; the
-port keeps its own process-wide registry. Import-cheap and
-dependency-free.
+Counterpart of the device-plane pieces of `tendermint_tpu/telemetry/`,
+under the same metric names, label sets, span names, record fields and
+file formats; the port keeps its own process-wide REGISTRY, TRACER,
+FLIGHT and LAUNCHLOG. Import-cheap and dependency-free.
 """
 
-from tendermint_tpu_torch.telemetry.registry import REGISTRY
+from tendermint_tpu_torch.telemetry.registry import (
+    LATENCY_BUCKETS,
+    REGISTRY,
+    SIZE_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+)
+from tendermint_tpu_torch.telemetry.tracer import TRACER, Span, Tracer
 
-__all__ = ["REGISTRY"]
+__all__ = [
+    "Counter",
+    "FLIGHT",
+    "FlightRecorder",
+    "Gauge",
+    "Histogram",
+    "Registry",
+    "REGISTRY",
+    "Span",
+    "SpanLog",
+    "TraceContext",
+    "Tracer",
+    "TRACER",
+    "LATENCY_BUCKETS",
+    "SIZE_BUCKETS",
+    "persist_spans",
+]
+
+
+def __getattr__(name: str):
+    # spanlog/flightrec/tracectx lazily: they touch the filesystem or
+    # os.urandom, and most importers only want the registry/tracer
+    if name in ("SpanLog", "persist_spans"):
+        from tendermint_tpu_torch.telemetry import spanlog
+
+        return getattr(spanlog, name)
+    if name in ("FLIGHT", "FlightRecorder"):
+        from tendermint_tpu_torch.telemetry import flightrec
+
+        return getattr(flightrec, name)
+    if name == "TraceContext":
+        from tendermint_tpu_torch.telemetry import tracectx
+
+        return tracectx.TraceContext
+    raise AttributeError(name)

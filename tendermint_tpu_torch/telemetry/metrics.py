@@ -5,7 +5,9 @@ registered at import into the port's own `REGISTRY`.
 Label values are low-cardinality by construction: `backend` in {host,
 device, tables, mesh}, `kind` in {verify, hash, tables}, `queue` and
 `consumer` the pipeline owners, `direction` in {shrink, restore},
-`result` in {hit, miss}.
+`result` in {hit, miss}, `state` in {useful, padded, cached}, `stage`
+the dispatch-handle stages, `lock` the ranked-lock names of
+`utils/lockrank.py`.
 """
 
 from __future__ import annotations
@@ -48,6 +50,39 @@ TABLE_CACHE = Counter(
     "tendermint_verify_table_cache_total",
     "Valset comb-table cache outcomes (hit/miss/incremental/host_build)",
     labelnames=("event",),
+)
+
+# -- launch ledger (telemetry/launchlog.py) ------------------------------------
+#
+# `state` splits the rows of a device launch into useful (requested),
+# padded (bucket or mesh geometry zeros shipped to the card) and cached
+# (rows the verified-signature cache withheld from the launch); `stage`
+# is the handle-lifecycle split. Per-launch detail lives in the ledger's
+# records, never as labels.
+
+LAUNCH_ROWS = Counter(
+    "tendermint_launch_rows",
+    "Rows per device launch by disposition: useful (requested), padded "
+    "(shape-bucket zeros shipped to device), cached (withheld by the "
+    "verified-signature cache) — occupancy = useful / (useful + padded)",
+    labelnames=("kind", "state"),
+)
+LAUNCH_STAGE_SECONDS = Histogram(
+    "tendermint_launch_stage_seconds",
+    "Per-launch stage durations from the dispatch-handle lifecycle: "
+    "queue_wait (submit -> launch start), host_prep (lane prep + kernel "
+    "dispatch), in_flight (enqueued on device -> consumer join), "
+    "finalize (materialization blocking the consumer)",
+    labelnames=("stage",),
+    buckets=LATENCY_BUCKETS,
+)
+# byte-sized buckets: 1 KiB floor (a small lane batch) to 1 GiB, x4 per step
+TRANSFER_BUCKETS = tuple(float(1024 * 4**i) for i in range(11))
+LAUNCH_TRANSFER_BYTES = Histogram(
+    "tendermint_launch_transfer_bytes",
+    "Host->device bytes shipped per launch (lane arrays, padded hash "
+    "blocks, sharded-table device_put on placement-cache misses)",
+    buckets=TRANSFER_BUCKETS,
 )
 
 # -- multi-card verify mesh (parallel/mesh.py) ---------------------------------
@@ -170,6 +205,44 @@ BATCHER_WAIT = Histogram(
     buckets=LATENCY_BUCKETS,
 )
 
+# -- trace contexts (telemetry/tracectx.py) -----------------------------------
+
+TRACE_SAMPLED = Counter(
+    "tendermint_trace_sampled_total",
+    "Trace contexts minted (head-based sampling said yes)",
+)
+TRACE_PROPAGATED = Counter(
+    "tendermint_trace_propagated_total",
+    "p2p frames sent carrying a trace context",
+)
+TRACE_DROPPED = Counter(
+    "tendermint_trace_dropped_total",
+    "Trace contexts lost (wire decode failures, trace-table evictions)",
+)
+
+# The span-name catalog: every literal the port passes to TRACER.add()
+# or TRACER.span() (tests/test_torch_telemetry.py holds the port's
+# sources to it).
+SPAN_CATALOG = frozenset({"batcher.flush", "dispatch.launch"})
+
+# -- lock contention (utils/lockrank.py) ---------------------------------------
+#
+# Only advance while contention timing is armed (`lockrank.set_timing`).
+
+LOCK_WAIT_SECONDS = Histogram(
+    "tendermint_lock_wait_seconds",
+    "Blocking acquire-wait per annotated ranked lock (armed profiling "
+    "only; per-site attribution in dump_telemetry?profile=1)",
+    labelnames=("lock",),
+    buckets=LATENCY_BUCKETS,
+)
+LOCK_HOLD_SECONDS = Histogram(
+    "tendermint_lock_hold_seconds",
+    "Hold duration per annotated ranked lock (armed profiling only)",
+    labelnames=("lock",),
+    buckets=LATENCY_BUCKETS,
+)
+
 # Pre-seed the known label values so reads see zero-valued series before
 # any instance or event.
 for _kind in ("verify", "hash", "tables"):
@@ -181,3 +254,8 @@ for _direction in ("shrink", "restore"):
 for _result in ("hit", "miss"):
     MESH_COMPILE.labels(result=_result).inc(0)
     TABLE_DEVICE_CACHE.labels(result=_result).inc(0)
+for _kind in ("verify", "hash", "tables", "leaf_hashes"):
+    for _state in ("useful", "padded", "cached"):
+        LAUNCH_ROWS.labels(kind=_kind, state=_state).inc(0)
+for _stage in ("queue_wait", "host_prep", "in_flight", "finalize"):
+    LAUNCH_STAGE_SECONDS.labels(stage=_stage)

@@ -1,17 +1,21 @@
 """Dependency-free metrics registry: counters, gauges, histograms
-(counterpart of `tendermint_tpu/telemetry/registry.py`, without its
-Prometheus and JSON exposition).
+(counterpart of `tendermint_tpu/telemetry/registry.py`, with its
+Prometheus text exposition and JSON dump).
 
 Metric families carry labels; one lock per family guards its children
 and their values, since consensus, dispatch and coalescer threads all
-write concurrently. Histograms use fixed cumulative buckets.
+write concurrently. Gauges may carry a callback (`set_function`)
+evaluated at collect time. Histograms use fixed cumulative buckets;
+`quantile()` interpolates within the winning bucket. `prometheus_text()`
+renders format 0.0.4 and `to_dict()` the structured dump, byte for byte
+as the JAX package's registry renders the same families.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Sequence
+from typing import Callable, Sequence
 
 # Latency buckets: 100 us floor to 30 s, roughly x2.5 per step.
 LATENCY_BUCKETS = (
@@ -25,22 +29,59 @@ SIZE_BUCKETS = (
 )
 
 
+def _format_value(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape_help(s: str) -> str:
+    return s.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label(s: str) -> str:
+    return s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _label_str(names: tuple[str, ...], values: tuple[str, ...]) -> str:
+    if not names:
+        return ""
+    inner = ",".join(
+        f'{n}="{_escape_label(v)}"' for n, v in zip(names, values)
+    )
+    return "{" + inner + "}"
+
+
 class _Metric:
     """Family base: name, help, label names, children keyed by label
     values. Unlabeled families expose the child API directly."""
 
     type_name = "untyped"
 
-    def __init__(self, name: str, help: str = "", labelnames: Sequence[str] = ()) -> None:
+    def __init__(
+        self,
+        name: str,
+        help: str = "",
+        labelnames: Sequence[str] = (),
+        registry: "Registry | None" = None,
+    ) -> None:
         self.name = name
         self.help = help
         self.labelnames = tuple(labelnames)
         self._lock = threading.Lock()
         self._children: dict[tuple[str, ...], object] = {}
-        REGISTRY.register(self)
-        # the no-label child exists from birth so the family always has
-        # a sample (reads see zeros, not absence)
-        self._default = None if self.labelnames else self._make_child(())
+        reg = registry if registry is not None else REGISTRY
+        reg.register(self)
+        if not self.labelnames:
+            # the no-label child exists from birth so the family always
+            # exposes a sample (scrapes see zeros, not absence)
+            self._default = self._make_child(())
+        else:
+            self._default = None
 
     def _make_child(self, values: tuple[str, ...]):
         child = self.CHILD(self._lock)
@@ -55,7 +96,9 @@ class _Metric:
         else:
             values = tuple(str(v) for v in values)
         if len(values) != len(self.labelnames):
-            raise ValueError(f"{self.name}: expected labels {self.labelnames}, got {values}")
+            raise ValueError(
+                f"{self.name}: expected labels {self.labelnames}, got {values}"
+            )
         with self._lock:
             child = self._children.get(values)
             if child is None:
@@ -66,6 +109,20 @@ class _Metric:
         with self._lock:
             return [(k, v.snapshot()) for k, v in self._children.items()]
 
+    def sum_total(self) -> float:
+        """Sum of all children's observation sums (histograms) or
+        values (counters/gauges): a cheap read without building
+        per-child bucket snapshots."""
+        total = 0.0
+        with self._lock:
+            for c in self._children.values():
+                s = getattr(c, "_sum", None)
+                if s is None:
+                    s = getattr(c, "_value", 0.0)
+                total += s
+        return float(total)
+
+    # unlabeled convenience: family proxies to its default child
     def _child0(self):
         if self._default is None:
             raise ValueError(f"{self.name} has labels {self.labelnames}; use .labels()")
@@ -108,17 +165,37 @@ class _GaugeChild:
     def __init__(self, lock: threading.Lock) -> None:
         self._lock = lock
         self._value = 0.0
+        self._fn: Callable[[], float] | None = None
 
     def set(self, v: float) -> None:
         with self._lock:
             self._value = float(v)
 
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
+    def set_function(self, fn: Callable[[], float] | None) -> None:
+        """Collect-time callback; exceptions keep the last stored value
+        (a scrape must never fail because a live view raced teardown)."""
+        with self._lock:
+            self._fn = fn
+
     @property
     def value(self) -> float:
         with self._lock:
-            return self._value
+            return self.snapshot()
 
     def snapshot(self) -> float:
+        fn = self._fn
+        if fn is not None:
+            try:
+                self._value = float(fn())
+            except Exception:
+                pass
         return self._value
 
 
@@ -128,6 +205,15 @@ class Gauge(_Metric):
 
     def set(self, v: float) -> None:
         self._child0().set(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        self._child0().inc(n)
+
+    def dec(self, n: float = 1.0) -> None:
+        self._child0().dec(n)
+
+    def set_function(self, fn: Callable[[], float] | None) -> None:
+        self._child0().set_function(fn)
 
     @property
     def value(self) -> float:
@@ -141,6 +227,8 @@ class _HistogramChild:
         self._counts = [0] * (len(buckets) + 1)
         self._sum = 0.0
         self._count = 0
+        # last exemplar attached to an observation (a trace id): JSON
+        # dump only, text format 0.0.4 has no exemplars
         self._exemplar: str | None = None
 
     def observe(self, v: float, exemplar: str | None = None) -> None:
@@ -156,7 +244,9 @@ class _HistogramChild:
             self._counts[-1] += 1
 
     def snapshot(self) -> dict:
-        cumulative, running = [], 0
+        # caller holds the family lock (or tolerates a torn read via .value)
+        cumulative = []
+        running = 0
         for c in self._counts:
             running += c
             cumulative.append(running)
@@ -174,6 +264,26 @@ class _HistogramChild:
         with self._lock:
             return self.snapshot()
 
+    def quantile(self, q: float) -> float:
+        """Linear interpolation inside the winning bucket — standard
+        Prometheus histogram_quantile() semantics."""
+        snap = self.value
+        if snap["count"] == 0:
+            return float("nan")
+        rank = q * snap["count"]
+        prev_ub, prev_cum = 0.0, 0
+        for ub, cum in snap["buckets"]:
+            if cum >= rank:
+                if ub == math.inf:
+                    return prev_ub  # open-ended: best honest answer
+                width = ub - prev_ub
+                in_bucket = cum - prev_cum
+                if in_bucket == 0:
+                    return ub
+                return prev_ub + width * (rank - prev_cum) / in_bucket
+            prev_ub, prev_cum = ub, cum
+        return prev_ub
+
 
 class Histogram(_Metric):
     type_name = "histogram"
@@ -184,11 +294,12 @@ class Histogram(_Metric):
         help: str = "",
         labelnames: Sequence[str] = (),
         buckets: Sequence[float] = LATENCY_BUCKETS,
+        registry: "Registry | None" = None,
     ) -> None:
         self._buckets = tuple(sorted(float(b) for b in buckets))
         if not self._buckets:
             raise ValueError("histogram needs at least one bucket")
-        super().__init__(name, help, labelnames)
+        super().__init__(name, help, labelnames, registry)
 
     def _make_child(self, values: tuple[str, ...]):
         child = _HistogramChild(self._lock, self._buckets)
@@ -198,13 +309,18 @@ class Histogram(_Metric):
     def observe(self, v: float, exemplar: str | None = None) -> None:
         self._child0().observe(v, exemplar=exemplar)
 
+    def quantile(self, q: float) -> float:
+        return self._child0().quantile(q)
+
     @property
     def value(self) -> dict:
         return self._child0().value
 
 
 class Registry:
-    """Named metric families."""
+    """Named metric families; collection renders every family even when
+    a labeled one has no children yet (HELP/TYPE lines make the catalog
+    discoverable from a scrape of an idle node)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -221,6 +337,62 @@ class Registry:
         with self._lock:
             return self._metrics.get(name)
 
+    def metrics(self) -> list[_Metric]:
+        with self._lock:
+            return list(self._metrics.values())
+
+    def prometheus_text(self) -> str:
+        """Text exposition format 0.0.4 (`Content-Type: text/plain;
+        version=0.0.4`)."""
+        out: list[str] = []
+        for m in self.metrics():
+            out.append(f"# HELP {m.name} {_escape_help(m.help)}")
+            out.append(f"# TYPE {m.name} {m.type_name}")
+            for values, snap in m.samples():
+                if m.type_name == "histogram":
+                    for ub, cum in snap["buckets"]:
+                        ls = _label_str(
+                            m.labelnames + ("le",),
+                            values + (_format_value(ub),),
+                        )
+                        out.append(f"{m.name}_bucket{ls} {cum}")
+                    ls = _label_str(m.labelnames, values)
+                    out.append(f"{m.name}_sum{ls} {_format_value(snap['sum'])}")
+                    out.append(f"{m.name}_count{ls} {snap['count']}")
+                else:
+                    ls = _label_str(m.labelnames, values)
+                    out.append(f"{m.name}{ls} {_format_value(snap)}")
+        return "\n".join(out) + "\n"
+
+    def to_dict(self) -> dict:
+        """Structured dump (the JSON twin of `prometheus_text`)."""
+        out: dict = {}
+        for m in self.metrics():
+            series = []
+            for values, snap in m.samples():
+                labels = dict(zip(m.labelnames, values))
+                if m.type_name == "histogram":
+                    entry = {
+                        "labels": labels,
+                        "sum": snap["sum"],
+                        "count": snap["count"],
+                        "buckets": [
+                            ["+Inf" if ub == math.inf else ub, cum]
+                            for ub, cum in snap["buckets"]
+                        ],
+                    }
+                    if "exemplar" in snap:
+                        entry["exemplar"] = snap["exemplar"]
+                    series.append(entry)
+                else:
+                    series.append({"labels": labels, "value": snap})
+            out[m.name] = {
+                "type": m.type_name,
+                "help": m.help,
+                "series": series,
+            }
+        return out
+
     def counter_value(self, name: str, **labels) -> float:
         """Current value of a counter or gauge series (0.0 when the
         series does not exist yet: unobserved is zero)."""
@@ -229,6 +401,8 @@ class Registry:
             return 0.0
         want = tuple(str(labels[n]) for n in m.labelnames) if labels else ()
         for values, snap in m.samples():
+            if not labels and not m.labelnames:
+                return float(snap)
             if values == want:
                 return float(snap)
         return 0.0

@@ -87,3 +87,52 @@ def finish_mixed_lanes():
     rs[k] = 0
     want[k] = True
     return xs, ys, zs, rs, want
+
+
+def lockrank_report() -> str:
+    """Drain the port's lock-rank sanitizer (`utils/lockrank.py`): "" when
+    it recorded no violation since the last drain, else each violation's
+    report with both threads' acquisition stacks. The port's test files
+    call it after every test, as the JAX suite's guard drains the JAX
+    package's sanitizer, so that a violation fails the test that
+    provoked it."""
+    from tendermint_tpu_torch.utils import lockrank
+
+    return "\n".join(lockrank.render_violation(v) for v in lockrank.drain())
+
+
+# The hand kernel each launch-ledger record's launch runs first, by the
+# record's kind; every verify launch then ends in the finish.
+LEDGER_KERNELS = {
+    "verify": ("ladder",),
+    "tables": ("madd_chain_entries", "madd_chain_fused"),
+    "hash": ("sha256_masked", "ripemd160_masked"),
+}
+_LEDGER_FAMILY = {"verify": "verify", "tables": "tables", "hash": "hash", "leaf_hashes": "hash"}
+
+
+def ledger_launches(records) -> dict:
+    """The kernel launches a run's launch-ledger records account for, by
+    family (`LEDGER_KERNELS`, plus `finish_encode_compare`): a record
+    that reached a device (no `error`, backend not "host") launched its
+    family's kernel once on each shard of its `mesh_width` (1 without a
+    mesh). A `root_from_hashes` record launches the tree levels only:
+    callers hold such calls out of the records they count."""
+    out = dict.fromkeys((*LEDGER_KERNELS, "finish_encode_compare"), 0)
+    for r in records:
+        if r.get("error") or r.get("backend", "host") == "host":
+            continue
+        family = _LEDGER_FAMILY[r["kind"]]
+        n = int(r.get("mesh_width", 1))
+        out[family] += n
+        if family != "hash":
+            out["finish_encode_compare"] += n
+    return out
+
+
+def kernel_launches(counts: dict) -> dict:
+    """The kernel wrappers' launch counts (`{wrapper name: launches}`)
+    grouped as `ledger_launches` groups the records."""
+    out = {family: sum(counts[n] for n in names) for family, names in LEDGER_KERNELS.items()}
+    out["finish_encode_compare"] = counts["finish_encode_compare"]
+    return out

@@ -62,7 +62,8 @@ class CircuitBreaker:
     def bind_telemetry(self, name: str) -> None:
         """Export this breaker under `kind=name`: a state gauge plus
         transition counters (to=open counts trips, to=closed counts
-        recoveries). Idempotent; the first name wins."""
+        recoveries), and a `breaker` flight event on every transition.
+        Idempotent; the first name wins."""
         if self.name is not None:
             return
         self.name = name
@@ -73,6 +74,14 @@ class CircuitBreaker:
         def _export(old: str, new: str) -> None:
             metrics.BREAKER_STATE.labels(kind=name).set(STATE_CODES[new])
             metrics.BREAKER_TRANSITIONS.labels(kind=name, to=new).inc()
+            # a transition is a forensic moment: black-box it and sample
+            # every trace for a window, so that the work around the
+            # degradation is attributable
+            from tendermint_tpu_torch.telemetry import tracectx
+            from tendermint_tpu_torch.telemetry.flightrec import FLIGHT
+
+            FLIGHT.record("breaker", breaker=name, frm=old, to=new)
+            tracectx.boost()
 
         self._listeners.append(_export)
 

@@ -20,6 +20,10 @@ Long work (a table build) calls `check()` between its steps, so a
 section ends within one step of the exit or of its thread's `stop`.
 The hook waits `EXIT_WAIT_S` at most. An idle worker blocked on its
 queue holds no torch frame and is not waited for.
+
+`at_exit(fn)` runs `fn` after that wait: the launch ledger's and the
+span log's files, which worker threads write, close there, once no
+section is left to write them.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ _cond = threading.Condition(threading.Lock())
 _active = 0
 _threads: "weakref.WeakSet[threading.Thread]" = weakref.WeakSet()
 _local = threading.local()  # .stop: the `stop` event of this thread
+_exit_hooks: list = []
 
 
 class ShuttingDown(RuntimeError):
@@ -93,6 +98,12 @@ def start_thread(target, name: str, *args, stop: threading.Event | None = None) 
     return t
 
 
+def at_exit(fn) -> None:
+    """Run `fn()` at interpreter exit, after the background work has
+    drained (in registration order; an error is logged, not raised)."""
+    _exit_hooks.append(fn)
+
+
 def _drain() -> None:
     _exiting.set()
     deadline = time.monotonic() + EXIT_WAIT_S
@@ -112,6 +123,11 @@ def _drain() -> None:
             threads=running,
             waited_s=EXIT_WAIT_S,
         )
+    for fn in _exit_hooks:
+        try:
+            fn()
+        except Exception as e:  # the exit goes on
+            kv(logger("shutdown"), logging.WARNING, "exit hook failed", error=repr(e)[:200])
 
 
 atexit.register(_drain)

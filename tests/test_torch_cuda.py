@@ -537,3 +537,51 @@ def test_mesh_remeshes_a_shard_fault_mid_call(dev, monkeypatch):
     assert (v.verify_batch(triples) == want).all()
     assert mesh.active_indices() == (0, 2, 3)
     assert TL.ladder.launches - before == 3
+
+
+def test_ledger_records_match_the_wrappers_launches(dev, signed, monkeypatch):
+    """On the card, the launch ledger's records account for exactly the
+    kernel wrappers' launches: a commit, a stack of 8 (async), a flat
+    batch, a data_hash and leaf hashes on one card, and a flat batch on
+    the 4-shard mesh through a shard fault (one record, three shards)."""
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.services.dispatch import DispatchQueue
+    from tendermint_tpu_torch.services.hasher import TreeHasher
+    from tendermint_tpu_torch.services.verifier import ShardedBatchVerifier, TableBatchVerifier
+    from tendermint_tpu_torch.telemetry import launchlog
+    from tendermint_tpu_torch.testing import kernel_launches, ledger_launches
+    from tendermint_tpu_torch.utils import fail
+
+    HS, HR, _H5, _MK = _hash_modules()
+    wrappers = {"madd_chain_entries": TT.sum_entries, "madd_chain_fused": TT.fused_chain, "ladder": TL.ladder,
+                "finish_encode_compare": TT.finish_encode_compare, "sha256_masked": HS.sha256_masked,
+                "ripemd160_masked": HR.ripemd160_masked}
+    monkeypatch.setattr(fail, "_device_faults", {})
+    pubs, commits = signed
+    v = TableBatchVerifier(device=dev, min_device_batch=0)
+    hasher = TreeHasher(device=dev, min_device_leaves=0)
+    mesh_v = ShardedBatchVerifier(mesh=_card_mesh(), min_device_batch=1)
+    triples = _mesh_triples(24, corrupt={7})
+    mesh_v.verify_batch(triples)  # first use of the device set
+    q = DispatchQueue(name="ledger-card")
+    launchlog.LAUNCHLOG.clear()
+    before = {k: w.launches for k, w in wrappers.items()}
+    try:
+        v.verify_commits(pubs, commits[:1])
+        v.verify_commits_async(pubs, commits, queue=q).result(60)
+        v.verify_batch([(pubs[i], commits[1][0][i], commits[1][1][i]) for i in range(len(pubs))])
+        hasher.root_from_items([i.to_bytes(2, "big") * 20 for i in range(300)])
+        hasher.leaf_hashes([bytes([i]) * 9 for i in range(70)])
+        fail.set_device_fault("shard1", 1)
+        mesh_v.verify_batch(triples)
+    finally:
+        q.close()
+    recs = launchlog.LAUNCHLOG.recent()
+    delta = {k: w.launches - before[k] for k, w in wrappers.items()}
+    assert [(r["kind"], r["backend"], r.get("mesh_width", 1)) for r in recs] == [
+        ("tables", "tables", 1), ("tables", "tables", 1), ("verify", "device", 1),
+        ("hash", "device", 1), ("leaf_hashes", "device", 1), ("verify", "mesh", 3)]
+    assert ledger_launches(recs) == kernel_launches(delta) == {
+        "verify": 4, "tables": 2, "hash": 2, "finish_encode_compare": 6}
+    assert recs[1]["queue"] == "ledger-card" and recs[2]["rows_padded"] == 0
+    v.close()

@@ -33,6 +33,7 @@ from tendermint_tpu_torch.telemetry import REGISTRY
 from tendermint_tpu_torch.utils import circuit as P_circuit
 from tendermint_tpu_torch.utils import fail
 from tendermint_tpu_torch.utils.circuit import OPEN, CircuitBreaker
+from tendermint_tpu_torch.testing import lockrank_report
 
 from tests.helpers import det_priv_keys
 
@@ -40,8 +41,18 @@ torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
-def _clean(monkeypatch):
-    monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")  # not ported: the port refuses it
+def _port_lockrank_guard():
+    """A violation the port's lock-rank sanitizer records fails the test
+    that provoked it (the suite's own guard drains only the JAX
+    package's sanitizer)."""
+    yield
+    report = lockrank_report()
+    if report:
+        pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+@pytest.fixture(autouse=True)
+def _clean():
     fail.clear_device_faults()
     J_fail.clear_device_faults()
     yield

@@ -37,8 +37,20 @@ from tendermint_tpu_torch.services import hasher as port_hasher
 from tendermint_tpu_torch.services import verifier as port_verifier
 from tendermint_tpu_torch.services.batcher import CoalescingVerifier
 from tendermint_tpu_torch.services.resilient import ResilientVerifier
+from tendermint_tpu_torch.testing import lockrank_report
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_lockrank_guard():
+    """A violation the port's lock-rank sanitizer records fails the test
+    that provoked it (the suite's own guard drains only the JAX
+    package's sanitizer)."""
+    yield
+    report = lockrank_report()
+    if report:
+        pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -147,6 +159,8 @@ want = np.ones(8, dtype=bool)
 if rank == 0:
     want[5] = False
 assert (local == want).all(), (rank, local)
+from tendermint_tpu_torch.utils import lockrank
+assert not lockrank.violations(), lockrank.render_report()
 print("RANK%d OK" % rank, flush=True)
 """
 
@@ -158,7 +172,8 @@ def _run_two_ranks(tmp_path, device: str, rank_env) -> None:
     procs = []
     for rank in (0, 1):
         env = dict(os.environ)
-        env.update(PYTHONPATH=str(REPO), TENDERMINT_TPU_LOCKRANK="0", **rank_env(rank))
+        # the port's sanitizer on, as the conftest sets it for this process
+        env.update(PYTHONPATH=str(REPO), TENDERMINT_TPU_LOCKRANK="1", **rank_env(rank))
         procs.append(subprocess.Popen(
             [sys.executable, str(script), str(rank), coord, device],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True,
@@ -209,7 +224,6 @@ def fake_cards(monkeypatch):
         monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
         monkeypatch.delenv("TENDERMINT_TPU_MESH_DEVICES", raising=False)
-        monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")
 
     built = []
     yield install, built

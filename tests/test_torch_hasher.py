@@ -21,6 +21,19 @@ from tendermint_tpu.types.evidence import evidence_hash
 from tendermint_tpu.types.errors import ValidationError
 from tendermint_tpu_torch.ops import merkle_kernel as MK
 from tendermint_tpu_torch.services import hasher as H
+from tendermint_tpu_torch.testing import lockrank_report
+
+
+@pytest.fixture(autouse=True)
+def _port_lockrank_guard():
+    """A violation the port's lock-rank sanitizer records fails the test
+    that provoked it (the suite's own guard drains only the JAX
+    package's sanitizer)."""
+    yield
+    report = lockrank_report()
+    if report:
+        pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
 
 ALGOS = ["sha256", "ripemd160"]
 
@@ -181,9 +194,7 @@ def test_state_sync_gate_on_the_port(monkeypatch):
     """The JAX chunk-gate helpers and `verify_chunks` on the port's
     backend: leaf hashes, the root fold, and a tampered chunk refused.
     `verify_chunks` reaches the port through `leaf_hashes_async`, on the
-    port's dispatch queue, whose locks refuse the JAX package's lock-rank
-    sanitizer that the suite turns on (not ported)."""
-    monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")
+    port's dispatch queue."""
     hasher = H.TreeHasher(min_device_leaves=0, device="cpu")
     chunks = J_snapshot.split_chunks(np.random.default_rng(4).bytes(5000), 700)
     leaves = J_snapshot._chunk_leaf_hashes(chunks, hasher)

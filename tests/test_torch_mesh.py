@@ -10,9 +10,6 @@ breaker, the coalescer's drain order, the nemesis book) runs through the
 verifier on the same seeded inputs: masks, tallies and leaf hashes equal
 (tolerance 0). The mesh's card cases are in `tests/test_torch_cuda.py`
 (the card's machine has no jax, which this file imports).
-
-The port's locks refuse the suite's lock-rank sanitizer, so these tests
-set TENDERMINT_TPU_LOCKRANK to 0.
 """
 
 from __future__ import annotations
@@ -51,8 +48,20 @@ from tendermint_tpu_torch.services.verifier import (
 )
 from tendermint_tpu_torch.telemetry import REGISTRY
 from tendermint_tpu_torch.utils import fail
+from tendermint_tpu_torch.testing import lockrank_report
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_lockrank_guard():
+    """A violation the port's lock-rank sanitizer records fails the test
+    that provoked it (the suite's own guard drains only the JAX
+    package's sanitizer)."""
+    yield
+    report = lockrank_report()
+    if report:
+        pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
 
 CPU = torch.device("cpu")
 SHARDS = 8  # host-executor meshes: the JAX tests' 8 virtual devices
@@ -60,7 +69,6 @@ SHARDS = 8  # host-executor meshes: the JAX tests' 8 virtual devices
 
 @pytest.fixture(autouse=True)
 def _clean_mesh_state(monkeypatch):
-    monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")  # not ported: the port refuses it
     fail.clear_device_faults()
     J_fail.clear_device_faults()
     set_default_mesh_manager(None, "cpu")

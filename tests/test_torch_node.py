@@ -27,9 +27,6 @@ launches; `ValidatorSet.verify_commit_batched` over a 10,000-validator
 commit and `verify_commit_batched_async` over a 1,000 x 16 fast-sync
 window, against the JAX host verifier; the first verify of a fresh
 process with and without `warm_kernels()`.
-
-The port's locks refuse the suite's lock-rank sanitizer
-(`TENDERMINT_TPU_LOCKRANK`, not ported), so these tests set it to 0.
 """
 
 from __future__ import annotations
@@ -71,6 +68,7 @@ from tendermint_tpu_torch.services.resilient import ResilientVerifier
 from tendermint_tpu_torch.telemetry import REGISTRY as PORT_REGISTRY
 from tendermint_tpu_torch.utils import fail as port_fail
 from tendermint_tpu_torch.utils.circuit import CircuitBreaker
+from tendermint_tpu_torch.testing import lockrank_report
 
 torch.set_num_threads(1)
 
@@ -83,8 +81,14 @@ PORT_THREADS = ("table-prebuild", "verify-coalescer", "verify-coalescer-join", "
 
 
 @pytest.fixture(autouse=True)
-def _no_lockrank(monkeypatch):
-    monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")  # not ported: the port refuses it
+def _port_lockrank_guard():
+    """A violation the port's lock-rank sanitizer records fails the test
+    that provoked it (the suite's own guard drains only the JAX
+    package's sanitizer)."""
+    yield
+    report = lockrank_report()
+    if report:
+        pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
 
 
 @pytest.fixture(autouse=True)
@@ -363,15 +367,18 @@ with tempfile.TemporaryDirectory() as home:
         commits = sum(s.inner.snapshot()["primary_calls"] for s in stacks)
 for s in stacks:
     s.close()
+from tendermint_tpu_torch.utils import lockrank
+violations = [lockrank.render_violation(v) for v in lockrank.drain()]
 jax = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print(json.dumps({"heights": heights, "warmed": warmed, "primary_calls": commits, "jax": jax}))
+print(json.dumps({"heights": heights, "warmed": warmed, "primary_calls": commits, "jax": jax,
+                  "lockrank_violations": violations}))
 """
 
 
 def _subprocess_env() -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
-    env["TENDERMINT_TPU_LOCKRANK"] = "0"
+    env["TENDERMINT_TPU_LOCKRANK"] = "1"  # the port's sanitizer, without the conftest
     env.pop("PYTHONSTARTUP", None)
     return env
 
@@ -392,6 +399,7 @@ def test_full_node_net_without_conftest_imports_no_jax():
     assert rep["warmed"] == ["cpu"] * 4, rep
     assert rep["primary_calls"] > 0, rep
     assert rep["jax"] == [], rep
+    assert rep["lockrank_violations"] == [], rep
 
 
 # -- the table prebuild at exit, and warm_kernels off the card --------------

@@ -28,6 +28,7 @@ from tendermint_tpu.types.part_set import PartSetHeader
 from tendermint_tpu.types.vote import VOTE_TYPE_PRECOMMIT, Vote
 from tendermint_tpu.types.vote_set import VoteSet
 from tendermint_tpu_torch.services import verifier as V
+from tendermint_tpu_torch.testing import lockrank_report
 
 torch.set_num_threads(1)
 
@@ -35,8 +36,14 @@ CHAIN = "torch-vs"
 
 
 @pytest.fixture(autouse=True)
-def _no_lockrank(monkeypatch):
-    monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")  # not ported: the port refuses it
+def _port_lockrank_guard():
+    """A violation the port's lock-rank sanitizer records fails the test
+    that provoked it (the suite's own guard drains only the JAX
+    package's sanitizer)."""
+    yield
+    report = lockrank_report()
+    if report:
+        pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
 
 
 @pytest.fixture(scope="module")

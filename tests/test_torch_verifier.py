@@ -20,9 +20,21 @@ from tendermint_tpu_torch.ops import ed25519_kernel as T
 from tendermint_tpu_torch.ops import ed25519_ladder as TL
 from tendermint_tpu_torch.ops import ed25519_tables as TT
 from tendermint_tpu_torch.services import verifier as V
+from tendermint_tpu_torch.testing import lockrank_report
 
 # one intra-op thread: the suite runs several test processes side by side
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_lockrank_guard():
+    """A violation the port's lock-rank sanitizer records fails the test
+    that provoked it (the suite's own guard drains only the JAX
+    package's sanitizer)."""
+    yield
+    report = lockrank_report()
+    if report:
+        pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
 
 ZERO_KEY = b"\x00" * 32  # small order: y = 0 is a point of order 4
 
@@ -271,9 +283,6 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from tendermint_tpu_torch.services.batcher import CoalescingVerifier
     from tendermint_tpu_torch.services.resilient import ResilientVerifier
 
-    # the suite turns on the JAX package's lock-rank sanitizer, which the
-    # port's coalescer refuses (not ported)
-    monkeypatch.setenv("TENDERMINT_TPU_LOCKRANK", "0")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(V, "_DEFAULTS", {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
