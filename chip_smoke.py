@@ -57,6 +57,23 @@ bytes):
    on an inexact mask, a missing launch, or a primary failure or host
    fallback it did not inject. Each step's launches stand on its own
    line; the kernels line keeps the bare phases' counts;
+8. types, run after phase 6 on the same stack: the port's own domain
+   types (`tendermint_tpu_torch.types`) as a node calls them, on the
+   keys of phases 2-4 with precommits signed over the port's
+   `Vote.sign_bytes`: `ValidatorSet.verify_commit` of a 10,000-validator
+   commit (5 calls at first sight, each on an empty signature cache,
+   and 5 from the stack's cache), `verify_commit_batched_async` of 16
+   commits of a 1000-validator set, `verify_commit_any` of a
+   4096-validator commit (the flat `ladder` route), each again with one
+   forged precommit, which must raise its `ValidationError` naming the
+   validator (and the window's entry and height); and
+   `Block.make_block` / `validate_basic` of phase 5's 65,536 txs with
+   `default_hasher()` (data_hash equal to the host tree, one leaf
+   launch and 16 `merkle_level` launches a data_hash, a tampered tx
+   refused). The lane collection (`_collect_commit_sigs` and
+   `_commit_lanes`) is timed alone. Its sets leave the table cache as
+   they found it; its launches stand on its own `types` line; then the
+   stack is closed;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -1096,10 +1113,10 @@ def _hist(name: str, **labels) -> tuple[float, int]:
     return snap["sum"], snap["count"]
 
 
-def _launched(c: dict, names, what: str) -> None:
+def _launched(c: dict, names, what: str, phase: str = "stack") -> None:
     for name in names:
         if c[name] == 0:
-            raise AssertionError(f"stack {what}: {name} did not launch")
+            raise AssertionError(f"{phase} {what}: {name} did not launch")
 
 
 # -- telemetry: the launch ledger, spans, the flight recorder ----------------
@@ -1225,7 +1242,6 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
 
     from tendermint_tpu_torch.merkle import simple as host
     from tendermint_tpu_torch.services.batcher import CoalescingVerifier
-    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
     from tendermint_tpu_torch.services.hasher import default_hasher
     from tendermint_tpu_torch.services.resilient import ResilientTreeHasher, ResilientVerifier
     from tendermint_tpu_torch.services.verifier import DEVICE_MIN_BATCH, TableBatchVerifier
@@ -1618,8 +1634,293 @@ def run_stack(stack, inp, sync, commit, window, flat, hashed, reps: int) -> dict
     if moved != injected:
         raise AssertionError(f"stack: dispatch failures {moved}, injected {injected}")
     rep["dispatch_failures"] = moved
-    stack.close()
-    default_dispatch_queue().close()
+    return rep
+
+
+# -- phase 8: the port's own domain types through the stack ------------------
+
+# the chain id is 17 characters, as MSG_LEN assumes; a precommit's
+# timestamp is TYPES_TIME_NS plus its validator index
+TYPES_CHAIN = "chip-smoke-chain1"
+TYPES_HEIGHT = 123456
+TYPES_TIME_NS = 1_760_000_000_000_000_000
+TYPES_POWER = 10
+
+
+class TableCacheKept:
+    """Leaves the table backend's cache as a phase found it: the types
+    phase's validator sets (the same keys in address order) must not
+    evict the sets that the later phases time."""
+
+    def __init__(self, backend):
+        self.backend = backend
+
+    def __enter__(self):
+        with self.backend._cache_lock:
+            self.saved = list(self.backend._tables.items())
+        return self
+
+    def __exit__(self, *exc):
+        with self.backend._cache_lock:
+            self.backend._tables.clear()
+            self.backend._tables.update(self.saved)
+
+
+def types_valset(inp: Inputs, n: int):
+    """The port's `ValidatorSet` over keys 0..n-1, each of power
+    TYPES_POWER, and each validator's key index in the set's (address)
+    order."""
+    from tendermint_tpu_torch.crypto import PubKey
+    from tendermint_tpu_torch.types import Validator, ValidatorSet
+
+    vs = ValidatorSet([Validator(PubKey(pk).address, PubKey(pk), TYPES_POWER) for pk in inp.pubs[:n]])
+    index = {pk: i for i, pk in enumerate(inp.pubs[:n])}
+    return vs, [index[v.pub_key.data] for v in vs.validators]
+
+
+def types_commit(inp: Inputs, vs, keys: list[int], height: int, tag: int):
+    """(block id, commit): a precommit of every validator of `vs` for one
+    block, each signed over the port's `Vote.sign_bytes`."""
+    import hashlib
+
+    from tendermint_tpu_torch.types import VOTE_TYPE_PRECOMMIT, BlockID, Commit, PartSetHeader, Vote
+
+    digest = hashlib.sha256(b"%d/%d" % (height, tag)).digest()
+    bid = BlockID(digest, PartSetHeader(total=1 + tag % 7, hash=digest[:20]))
+    pre = []
+    for idx, (val, key) in enumerate(zip(vs.validators, keys)):
+        v = Vote(val.address, idx, height, 0, TYPES_TIME_NS + idx, VOTE_TYPE_PRECOMMIT, bid)
+        pre.append(v.with_signature(inp.sign(key, v.sign_bytes(TYPES_CHAIN))))
+    return bid, Commit(block_id=bid, precommits=pre)
+
+
+def forged_at(commit, idx: int):
+    """The commit with validator `idx`'s precommit signature forged."""
+    from tendermint_tpu_torch.types import Commit
+
+    pre = list(commit.precommits)
+    pre[idx] = pre[idx].with_signature(forge(pre[idx].signature))
+    return Commit(block_id=commit.block_id, precommits=pre)
+
+
+def types_outcome(fn) -> str | None:
+    """None, or the message of the `ValidationError` that `fn` raised
+    (anything else raises on)."""
+    from tendermint_tpu_torch.types import ValidationError
+
+    try:
+        fn()
+    except ValidationError as e:
+        return str(e)
+    return None
+
+
+def run_types(stack, inp, sync, sizes, hashed, reps: int) -> dict:
+    """Phase 8: the port's own domain types (`tendermint_tpu_torch.types`)
+    on the stack a node calls, `default_verifier()` and `default_hasher()`:
+    the consensus commit through `ValidatorSet.verify_commit` (`reps`
+    calls at first sight, each on an empty signature cache, and `reps`
+    from the stack's cache), the fast-sync window through
+    `verify_commit_batched_async`, the light client's first contact
+    through `verify_commit_any`, and a block's `make_block` /
+    `validate_basic`; each with a forged input that must raise its
+    `ValidationError`. `sizes` = (commit validators, window validators,
+    window commits, first-contact validators); `hashed` = the hash
+    phase's txs and their host root. The keys are phases 2-4's; only the
+    precommits are signed here. Each step's launches are zeroed just
+    before it and read just after, and stand on this phase's line only."""
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.types import Block, Txs, ValidatorSet
+
+    n, ns, k, nf = sizes
+    txs, want_root = hashed
+    hasher = default_hasher()
+    health = StackHealth(stack.inner, hasher)
+    backend = stack.inner.primary
+    rep: dict = {}
+
+    def expect(what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"types {what}: {got!r}, expected {want!r}")
+
+    def fresh_call(fn):
+        """`fn(verifier)` on a coalescer of its own (an empty signature
+        cache) over the stack's resilient layer and tables."""
+        v = CoalescingVerifier(stack.inner)
+        try:
+            return fn(v)
+        finally:
+            v.coalescer.close()
+
+    def lanes_s(vs, entries) -> list:
+        """The host plane's lane collection alone: each precommit's sign
+        bytes and the validator-aligned lanes."""
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            collected = [vs._collect_commit_sigs(TYPES_CHAIN, bid, h, c) for bid, h, c in entries]
+            vs._commit_lanes(collected, len(vs))
+            out.append(time.perf_counter() - t0)
+        return out
+
+    with TableCacheKept(backend):
+        # 1. the consensus commit
+        t0 = time.perf_counter()
+        vs, keys = types_valset(inp, n)
+        bid, commit = types_commit(inp, vs, keys, TYPES_HEIGHT, 0)
+        sign_s = time.perf_counter() - t0
+        tables_s = timed(lambda: backend.tables_for(tuple(v.pub_key.data for v in vs.validators)), sync)
+        collect = lanes_s(vs, [(bid, TYPES_HEIGHT, commit)])
+        runs: dict = {"cold": [], "cached": []}
+
+        def commit_call(v, kind):
+            reset_counts()
+            out = []
+            runs[kind].append(timed(lambda: out.append(types_outcome(lambda: vs.verify_commit(
+                TYPES_CHAIN, bid, TYPES_HEIGHT, commit, verifier=v, consumer="consensus"))), sync))
+            expect(f"commit ({kind})", out[0], None)
+            c = counts()
+            if kind == "cold":
+                _launched(c, ("madd_chain_entries", "finish_encode_compare"), "commit", phase="types")
+            return c
+
+        c_commit = commit_call(stack, "cold")
+        for _ in range(reps - 1):
+            fresh_call(lambda v: commit_call(v, "cold"))
+        for _ in range(reps):
+            commit_call(stack, "cached")
+        bad = n // 7
+        reset_counts()
+        got = fresh_call(lambda v: types_outcome(lambda: vs.verify_commit(
+            TYPES_CHAIN, bid, TYPES_HEIGHT, forged_at(commit, bad), verifier=v)))
+        c_forged = counts()
+        expect("forged commit", got, f"invalid commit signature from validator {bad}")
+        _launched(c_forged, ("madd_chain_entries", "finish_encode_compare"), "forged commit", phase="types")
+        health.check("types commit")
+        rep["commit"] = {
+            "validators": n, "sign_s": sign_s, "tables_s": tables_s,
+            "cold_s_median": statistics.median(runs["cold"]), "cached_s_median": statistics.median(runs["cached"]),
+            "lane_collection_s_median": statistics.median(collect),
+            "cold_s": runs["cold"], "cached_s": runs["cached"], "lane_collection_s": collect,
+            "forged": got, "launches": c_commit, "forged_launches": c_forged,
+        }
+
+        # 2. the fast-sync window: k commits of one set of ns validators
+        t0 = time.perf_counter()
+        vs_w, keys_w = types_valset(inp, ns)
+        entries = []
+        for e in range(k):
+            bid_e, c_e = types_commit(inp, vs_w, keys_w, TYPES_HEIGHT + 1 + e, 1 + e)
+            entries.append((bid_e, TYPES_HEIGHT + 1 + e, c_e))
+        sign_w = time.perf_counter() - t0
+        tables_w = timed(lambda: backend.tables_for(tuple(v.pub_key.data for v in vs_w.validators)), sync)
+        collect_w = lanes_s(vs_w, entries)
+        window_s, c_window = [], None
+
+        def window_call(v):
+            out = []
+            window_s.append(timed(lambda: out.append(types_outcome(lambda: vs_w.verify_commit_batched_async(
+                TYPES_CHAIN, entries, verifier=v, consumer="fastsync").result())), sync))
+            return out[0]
+
+        for _ in range(reps):
+            reset_counts()
+            expect("window", fresh_call(window_call), None)
+            c_window = counts()
+            _launched(c_window, ("madd_chain_fused", "finish_encode_compare"), "window", phase="types")
+        e_bad, lane_bad = k // 3, ns // 5
+        forged_entries = list(entries)
+        bid_e, h_e, c_e = entries[e_bad]
+        forged_entries[e_bad] = (bid_e, h_e, forged_at(c_e, lane_bad))
+        reset_counts()
+        got = fresh_call(lambda v: types_outcome(lambda: vs_w.verify_commit_batched_async(
+            TYPES_CHAIN, forged_entries, verifier=v, consumer="fastsync").result()))
+        c_wforged = counts()
+        expect("forged window", got, f"invalid commit signature from validator {lane_bad} "
+                                     f"(batch entry {e_bad}, height {h_e})")
+        _launched(c_wforged, ("madd_chain_fused", "finish_encode_compare"), "forged window", phase="types")
+        health.check("types window")
+        med_w = statistics.median(window_s)
+        rep["window"] = {
+            "validators": ns, "window": k, "sign_s": sign_w, "tables_s": tables_w,
+            "s_median": med_w, "commits_per_s": k / med_w, "lane_collection_s_median": statistics.median(collect_w),
+            "s": window_s, "lane_collection_s": collect_w, "forged": got,
+            "launches": c_window, "forged_launches": c_wforged,
+        }
+
+        # 3. the light client's first contact: the trusted set checks a
+        # commit of a set with the same validators, as one flat batch
+        t0 = time.perf_counter()
+        vs_l, keys_l = types_valset(inp, nf)
+        new_set = ValidatorSet(list(vs_l.validators))
+        bid_l, commit_l = types_commit(inp, vs_l, keys_l, TYPES_HEIGHT + 100, 99)
+        sign_l = time.perf_counter() - t0
+        light_s, c_light = [], None
+
+        def light_call(v):
+            out = []
+            light_s.append(timed(lambda: out.append(types_outcome(lambda: vs_l.verify_commit_any(
+                new_set, TYPES_CHAIN, bid_l, TYPES_HEIGHT + 100, commit_l, verifier=v, consumer="light"))), sync))
+            return out[0]
+
+        for _ in range(reps):
+            reset_counts()
+            expect("first contact", fresh_call(light_call), None)
+            c_light = counts()
+            _launched(c_light, ("ladder", "finish_encode_compare"), "first contact", phase="types")
+        reset_counts()
+        got = fresh_call(lambda v: types_outcome(lambda: vs_l.verify_commit_any(
+            new_set, TYPES_CHAIN, bid_l, TYPES_HEIGHT + 100, forged_at(commit_l, nf // 2), verifier=v,
+            consumer="light")))
+        c_lforged = counts()
+        expect("forged first contact", got, "invalid commit signature (old set)")
+        _launched(c_lforged, ("ladder", "finish_encode_compare"), "forged first contact", phase="types")
+        health.check("types first contact")
+        med_l = statistics.median(light_s)
+        rep["light"] = {
+            "validators": nf, "sign_s": sign_l, "s_median": med_l, "verifies_per_s": nf / med_l, "s": light_s,
+            "forged": got, "launches": c_light, "forged_launches": c_lforged,
+        }
+
+        # 4. a block of the hash phase's txs on the last height's commit:
+        # data_hash on the card twice, in make_block and in validate_basic
+        levels = (len(txs) - 1).bit_length()
+        per_hash = {"sha256_masked": 1, "merkle_level": levels}
+        make_s, validate_s = [], []
+        block = None
+        for _ in range(reps):
+            reset_counts()
+            out = []
+            make_s.append(timed(lambda: out.append(Block.make_block(
+                height=TYPES_HEIGHT + 1, chain_id=TYPES_CHAIN, txs=Txs(txs), last_commit=commit, last_block_id=bid,
+                time=TYPES_TIME_NS + n, validators_hash=vs.hash(), app_hash=b"\x01" * 32, hasher=hasher)), sync))
+            block = out[0]
+            expect("make_block launches", {name: counts()[name] for name in per_hash}, per_hash)
+            expect("make_block data_hash", block.header.data_hash, want_root)
+            reset_counts()
+            validate_s.append(timed(lambda: block.validate_basic(hasher=hasher), sync))
+            expect("validate_basic launches", {name: counts()[name] for name in per_hash}, per_hash)
+        # the last commit's hash stays on the host (10k vote encodings and
+        # their tree): timed alone, as make_block and validate_basic pay it
+        commit_hash_s = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            expect("last commit hash", commit.hash(), block.header.last_commit_hash)
+            commit_hash_s.append(time.perf_counter() - t0)
+        block.data.txs[0] = bytes(len(txs[0]))
+        got = types_outcome(lambda: block.validate_basic(hasher=hasher))
+        expect("tampered block", got, "data_hash mismatch")
+        block.data.txs[0] = txs[0]
+        health.check("types block")
+        rep["block"] = {
+            "txs": len(txs), "make_block_s_median": statistics.median(make_s),
+            "validate_basic_s_median": statistics.median(validate_s),
+            "last_commit_hash_s_median": statistics.median(commit_hash_s), "make_block_s": make_s,
+            "validate_basic_s": validate_s, "last_commit_hash_s": commit_hash_s, "data_hash": block.header.data_hash.hex(), "block_hash": block.hash().hex(),
+            "tampered": got, "launches_per_call": per_hash,
+        }
+    log({"phase": "types", **rep})
     return rep
 
 
@@ -2102,6 +2403,7 @@ def run(args) -> dict:
     from tendermint_tpu_torch.ops import ed25519_ladder as lad
     from tendermint_tpu_torch.ops import ed25519_tables as tab
     from tendermint_tpu_torch.ops.ed25519_kernel import prepare_batch
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
     from tendermint_tpu_torch.services.verifier import default_verifier
 
     sync = torch.cuda.synchronize
@@ -2241,6 +2543,16 @@ def run(args) -> dict:
         hashed=(txs, bytes.fromhex(hrep["data_hash"]["sha256"]["root"]), chunks),
         reps=args.reps,
     )
+
+    # -- phase 8: the port's own domain types through the same stack --------
+    report["types"] = run_types(
+        stack, inp, sync,
+        sizes=(n, ns, k, nf),
+        hashed=(txs, bytes.fromhex(hrep["data_hash"]["sha256"]["root"])),
+        reps=args.reps,
+    )
+    stack.close()
+    default_dispatch_queue().close()
 
     # -- phase 7: the same work over a mesh of four shards --------------------
     report["mesh"] = run_mesh(

@@ -1,0 +1,162 @@
+"""Deterministic binary codec.
+
+Role of go-wire's ReadBinary/WriteBinary in the reference (used by the WAL
+`consensus/wal.go:177`, state persistence `state/state.go:232`, block parts,
+and every p2p message). Encoding rules:
+
+- ``uvarint``: LEB128 (7 bits per byte, little-endian groups, MSB=continue).
+- ``svarint``: zigzag-mapped uvarint.
+- ``bytes``: uvarint length prefix + raw bytes.
+- ``string``: utf-8 encoded, as bytes.
+- structs: fields in declaration order via each type's ``encode``/``decode``.
+
+Every encoder is a pure function of the value — no maps with nondeterministic
+iteration order, no floats. All integers are arbitrary-precision Python ints;
+heights/rounds fit int64 by validation at the type layer.
+"""
+
+from __future__ import annotations
+
+
+def encode_uvarint(n: int) -> bytes:
+    if n < 0:
+        raise ValueError(f"uvarint cannot encode negative {n}")
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def encode_svarint(n: int) -> bytes:
+    # zigzag: 0,-1,1,-2,2 ... -> 0,1,2,3,4
+    return encode_uvarint((n << 1) if n >= 0 else ((-n << 1) - 1))
+
+
+def encode_bytes(b: bytes) -> bytes:
+    return encode_uvarint(len(b)) + bytes(b)
+
+
+def encode_string(s: str) -> bytes:
+    return encode_bytes(s.encode("utf-8"))
+
+
+def decode_uvarint(data: bytes, offset: int = 0) -> tuple[int, int]:
+    n = 0
+    shift = 0
+    while True:
+        if offset >= len(data):
+            raise ValueError("truncated uvarint")
+        b = data[offset]
+        offset += 1
+        n |= (b & 0x7F) << shift
+        if not (b & 0x80):
+            return n, offset
+        shift += 7
+        if shift > 70:
+            raise ValueError("uvarint too long")
+
+
+def decode_svarint(data: bytes, offset: int = 0) -> tuple[int, int]:
+    u, offset = decode_uvarint(data, offset)
+    return ((u >> 1) ^ -(u & 1)), offset
+
+
+def decode_bytes(data: bytes, offset: int = 0) -> tuple[bytes, int]:
+    n, offset = decode_uvarint(data, offset)
+    if offset + n > len(data):
+        raise ValueError("truncated bytes")
+    return bytes(data[offset : offset + n]), offset + n
+
+
+def decode_string(data: bytes, offset: int = 0) -> tuple[str, int]:
+    b, offset = decode_bytes(data, offset)
+    return b.decode("utf-8"), offset
+
+
+class Writer:
+    """Append-only deterministic encoder."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self) -> None:
+        self._parts: list[bytes] = []
+
+    def uvarint(self, n: int) -> "Writer":
+        self._parts.append(encode_uvarint(n))
+        return self
+
+    def svarint(self, n: int) -> "Writer":
+        self._parts.append(encode_svarint(n))
+        return self
+
+    def bytes(self, b: bytes) -> "Writer":
+        self._parts.append(encode_bytes(b))
+        return self
+
+    def raw(self, b: bytes) -> "Writer":
+        self._parts.append(bytes(b))
+        return self
+
+    def string(self, s: str) -> "Writer":
+        self._parts.append(encode_string(s))
+        return self
+
+    def bool(self, v: bool) -> "Writer":
+        self._parts.append(b"\x01" if v else b"\x00")
+        return self
+
+    def build(self) -> bytes:
+        return b"".join(self._parts)
+
+
+class Reader:
+    """Sequential decoder with bounds checking."""
+
+    __slots__ = ("data", "offset")
+
+    def __init__(self, data: bytes, offset: int = 0) -> None:
+        self.data = data
+        self.offset = offset
+
+    def uvarint(self) -> int:
+        n, self.offset = decode_uvarint(self.data, self.offset)
+        return n
+
+    def svarint(self) -> int:
+        n, self.offset = decode_svarint(self.data, self.offset)
+        return n
+
+    def bytes(self) -> bytes:
+        b, self.offset = decode_bytes(self.data, self.offset)
+        return b
+
+    def raw(self, n: int) -> bytes:
+        if self.offset + n > len(self.data):
+            raise ValueError("truncated raw read")
+        b = self.data[self.offset : self.offset + n]
+        self.offset += n
+        return bytes(b)
+
+    def string(self) -> str:
+        s, self.offset = decode_string(self.data, self.offset)
+        return s
+
+    def bool(self) -> bool:
+        b = self.raw(1)
+        if b == b"\x01":
+            return True
+        if b == b"\x00":
+            return False
+        raise ValueError(f"invalid bool byte {b!r}")
+
+    def done(self) -> bool:
+        return self.offset >= len(self.data)
+
+    def expect_done(self) -> None:
+        if not self.done():
+            raise ValueError(f"{len(self.data) - self.offset} trailing bytes")

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import hashlib
 
+ADDRESS_LEN = 20
+
 # Default tree/leaf hash algorithm for the whole framework.
 DEFAULT_ALGO = "sha256"
 
@@ -34,3 +36,8 @@ def tmhash(data: bytes, algo: str = DEFAULT_ALGO) -> bytes:
     if algo == "ripemd160":
         return ripemd160(data)
     raise ValueError(f"unknown hash algo {algo!r}")
+
+
+def address_hash(pubkey_bytes: bytes) -> bytes:
+    """Validator/node address = first 20 bytes of SHA-256 of the raw pubkey."""
+    return sha256(pubkey_bytes)[:ADDRESS_LEN]

@@ -1,16 +1,21 @@
-"""ed25519 public keys and host-side verification.
+"""ed25519 keys and host-side sign/verify.
 
-Counterpart of `tendermint_tpu/crypto/keys.py::PubKey`, over the copied
-pure-Python RFC 8032 module (`crypto/ed25519_ref.py`): the port's host
-path needs no `cryptography` package.
+Counterpart of `tendermint_tpu/crypto/keys.py` (`PubKey`, `PrivKey`,
+`gen_priv_key`), over the copied pure-Python RFC 8032 module
+(`crypto/ed25519_ref.py`): the port's host path needs no `cryptography`
+package. Ed25519 signing is deterministic, so `PrivKey.sign` gives the
+same bytes as the JAX package's library-backed signer.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from tendermint_tpu_torch.crypto import ed25519_ref
+from tendermint_tpu_torch.crypto.hashing import address_hash
 
+PRIVKEY_SEED_LEN = 32
 PUBKEY_LEN = 32
 SIGNATURE_LEN = 64
 
@@ -55,8 +60,38 @@ class PubKey:
             return False
         return ed25519_ref.verify(self.data, msg, signature)
 
+    @property
+    def address(self) -> bytes:
+        return address_hash(self.data)
+
     def __bytes__(self) -> bytes:
         return self.data
 
     def hex(self) -> str:
         return self.data.hex()
+
+
+@dataclass(frozen=True)
+class PrivKey:
+    """ed25519 private key from a 32-byte seed (RFC 8032 style)."""
+
+    seed: bytes
+
+    def __post_init__(self) -> None:
+        if len(self.seed) != PRIVKEY_SEED_LEN:
+            raise ValueError(f"privkey seed must be {PRIVKEY_SEED_LEN} bytes")
+
+    def sign(self, msg: bytes) -> bytes:
+        return ed25519_ref.sign(self.seed, msg)
+
+    @property
+    def pub_key(self) -> PubKey:
+        return PubKey(ed25519_ref.public_from_seed(self.seed))
+
+    def __repr__(self) -> str:  # never leak the seed
+        return f"PrivKey(pub={self.pub_key.hex()[:16]}…)"
+
+
+def gen_priv_key(seed: bytes | None = None) -> PrivKey:
+    """Generate a key; pass a fixed seed for deterministic test fixtures."""
+    return PrivKey(seed if seed is not None else os.urandom(PRIVKEY_SEED_LEN))

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from tendermint_tpu_torch.codec import Reader, Writer, encode_bytes, encode_string
 from tendermint_tpu_torch.crypto.hashing import DEFAULT_ALGO, tmhash
 
 LEAF_PREFIX = b"\x00"
@@ -58,54 +59,6 @@ def simple_hash_from_byte_slices(items: list[bytes], algo: str = DEFAULT_ALGO) -
     return simple_hash_from_hashes([leaf_hash(x, algo) for x in items], algo)
 
 
-# -- the codec's uvarint and length-prefixed bytes (LEB128) -------------------
-
-
-def _uvarint(n: int) -> bytes:
-    if n < 0:
-        raise ValueError(f"uvarint cannot encode negative {n}")
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        if not n:
-            out.append(b)
-            return bytes(out)
-        out.append(b | 0x80)
-
-
-def _len_prefixed(b: bytes) -> bytes:
-    return _uvarint(len(b)) + bytes(b)
-
-
-class _Reader:
-    def __init__(self, data: bytes) -> None:
-        self.data = data
-        self.offset = 0
-
-    def uvarint(self) -> int:
-        n = shift = 0
-        while True:
-            if self.offset >= len(self.data):
-                raise ValueError("truncated uvarint")
-            b = self.data[self.offset]
-            self.offset += 1
-            n |= (b & 0x7F) << shift
-            if not b & 0x80:
-                return n
-            shift += 7
-            if shift > 70:
-                raise ValueError("uvarint too long")
-
-    def bytes(self) -> bytes:
-        n = self.uvarint()
-        if self.offset + n > len(self.data):
-            raise ValueError("truncated bytes")
-        out = bytes(self.data[self.offset : self.offset + n])
-        self.offset += n
-        return out
-
-
 @dataclass
 class SimpleProof:
     """Inclusion proof: aunt hashes bottom-up (reference: merkle SimpleProof)."""
@@ -119,14 +72,15 @@ class SimpleProof:
         return _root_from_aunts(self.index, self.total, self.leaf, self.aunts, algo)
 
     def encode(self) -> bytes:
-        parts = [_uvarint(self.index), _uvarint(self.total), _len_prefixed(self.leaf)]
-        parts.append(_uvarint(len(self.aunts)))
-        parts += [_len_prefixed(a) for a in self.aunts]
-        return b"".join(parts)
+        w = Writer().uvarint(self.index).uvarint(self.total).bytes(self.leaf)
+        w.uvarint(len(self.aunts))
+        for a in self.aunts:
+            w.bytes(a)
+        return w.build()
 
     @classmethod
     def decode(cls, data: bytes) -> "SimpleProof":
-        r = _Reader(data)
+        r = Reader(data)
         index, total, leaf = r.uvarint(), r.uvarint(), r.bytes()
         aunts = [r.bytes() for _ in range(r.uvarint())]
         return cls(index=index, total=total, leaf=leaf, aunts=aunts)
@@ -180,7 +134,7 @@ def simple_proofs_from_byte_slices(
 
 def simple_hash_from_map(kvs: dict[str, bytes], algo: str = DEFAULT_ALGO) -> bytes:
     """Root over a string->bytes map, keys sorted (reference: SimpleHashFromMap)."""
-    items = [_len_prefixed(k.encode("utf-8")) + _len_prefixed(v) for k, v in sorted(kvs.items())]
+    items = [encode_string(k) + encode_bytes(v) for k, v in sorted(kvs.items())]
     return simple_hash_from_byte_slices(items, algo)
 
 

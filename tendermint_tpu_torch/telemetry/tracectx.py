@@ -30,6 +30,8 @@ import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 
+from tendermint_tpu_torch.codec import Reader, Writer
+
 SAMPLE_ENV = "TENDERMINT_TPU_TRACE_SAMPLE"
 DEFAULT_SAMPLE = 64
 
@@ -38,53 +40,6 @@ DEFAULT_SAMPLE = 64
 _WIRE_VERSION = 1
 
 _ID_BYTES = 8
-
-
-def _uvarint(n: int) -> bytes:
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        if n:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-class Reader:
-    """Sequential decoder of the wire block's fields (the JAX package's
-    `codec.binary.Reader` subset the block needs), bounds-checked."""
-
-    __slots__ = ("data", "offset")
-
-    def __init__(self, data: bytes, offset: int = 0) -> None:
-        self.data = bytes(data)
-        self.offset = offset
-
-    def uvarint(self) -> int:
-        n = shift = 0
-        while True:
-            if self.offset >= len(self.data):
-                raise ValueError("truncated uvarint")
-            b = self.data[self.offset]
-            self.offset += 1
-            n |= (b & 0x7F) << shift
-            if not b & 0x80:
-                return n
-            shift += 7
-            if shift > 70:
-                raise ValueError("uvarint too long")
-
-    def raw(self, n: int) -> bytes:
-        if self.offset + n > len(self.data):
-            raise ValueError("truncated raw bytes")
-        out = self.data[self.offset : self.offset + n]
-        self.offset += n
-        return out
-
-    def string(self) -> str:
-        return self.raw(self.uvarint()).decode("utf-8")
 
 
 @dataclass(frozen=True)
@@ -106,15 +61,13 @@ class TraceContext:
         return TraceContext(self.trace_id, os.urandom(_ID_BYTES), self.origin)
 
     def encode_wire(self) -> bytes:
-        origin = self.origin.encode("utf-8")
-        return b"".join(
-            (
-                _uvarint(_WIRE_VERSION),
-                self.trace_id[:_ID_BYTES].ljust(_ID_BYTES, b"\x00"),
-                self.span_id[:_ID_BYTES].ljust(_ID_BYTES, b"\x00"),
-                _uvarint(len(origin)),
-                origin,
-            )
+        return (
+            Writer()
+            .uvarint(_WIRE_VERSION)
+            .raw(self.trace_id[:_ID_BYTES].ljust(_ID_BYTES, b"\x00"))
+            .raw(self.span_id[:_ID_BYTES].ljust(_ID_BYTES, b"\x00"))
+            .string(self.origin)
+            .build()
         )
 
     @classmethod

@@ -136,3 +136,60 @@ def kernel_launches(counts: dict) -> dict:
     out = {family: sum(counts[n] for n in names) for family, names in LEDGER_KERNELS.items()}
     out["finish_encode_compare"] = counts["finish_encode_compare"]
     return out
+
+
+# -- the domain types' fixtures (the port's counterpart of tests/helpers.py) --
+
+TEST_CHAIN_ID = "test-chain"
+
+
+def det_priv_keys(n: int):
+    """n deterministic keys, seeds 1..n little-endian."""
+    from tendermint_tpu_torch.crypto import PrivKey
+
+    return [PrivKey(i.to_bytes(32, "little")) for i in range(1, n + 1)]
+
+
+def make_validators(n: int, power: int = 10):
+    """(ValidatorSet, priv validators in the set's order): n deterministic
+    validators of equal power."""
+    from tendermint_tpu_torch.types import PrivValidator, Validator, ValidatorSet
+
+    privs = [PrivValidator(k) for k in det_priv_keys(n)]
+    vs = ValidatorSet([Validator(p.address, p.pub_key, power) for p in privs])
+    by_addr = {p.address: p for p in privs}
+    return vs, [by_addr[v.address] for v in vs.validators]
+
+
+def make_block_id(seed: bytes = b"blk"):
+    import hashlib
+
+    from tendermint_tpu_torch.types import BlockID, PartSetHeader
+
+    h = hashlib.sha256(seed).digest()
+    return BlockID(hash=h, parts_header=PartSetHeader(total=1, hash=h[:20]))
+
+
+def signed_vote(priv, index, height, round_, type_, block_id, chain_id=TEST_CHAIN_ID, timestamp=None):
+    """A vote signed through `priv`'s double-sign guard."""
+    import time
+
+    from tendermint_tpu_torch.types import Vote
+
+    vote = Vote(validator_address=priv.address, validator_index=index, height=height, round=round_,
+                timestamp=timestamp if timestamp is not None else time.time_ns(), type=type_,
+                block_id=block_id)
+    return priv.sign_vote(chain_id, vote)
+
+
+def make_commit(val_set, privs, height, round_, block_id, verifier, chain_id=TEST_CHAIN_ID):
+    """A commit of every validator's precommit, made through a `VoteSet`
+    whose signature checks run on `verifier` (a port type given no
+    verifier would take the card's stack)."""
+    from tendermint_tpu_torch.types import VOTE_TYPE_PRECOMMIT, VoteSet
+
+    votes = VoteSet(chain_id, height, round_, VOTE_TYPE_PRECOMMIT, val_set)
+    for i, priv in enumerate(privs):
+        votes.add_vote(signed_vote(priv, i, height, round_, VOTE_TYPE_PRECOMMIT, block_id, chain_id),
+                       verifier=verifier)
+    return votes.make_commit()

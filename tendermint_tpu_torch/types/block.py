@@ -1,0 +1,329 @@
+"""Block, Header, Data, Commit (reference `types/block.go`).
+
+Header hash = SimpleMerkle over the 9-field map (`types/block.go:173-188`);
+Commit = precommits in validator-set order (`:222-233`); both tree builds are
+batchable through the TreeHasher.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from tendermint_tpu_torch.codec import Reader, Writer, encode_string, encode_uvarint
+from tendermint_tpu_torch.merkle import simple_hash_from_byte_slices, simple_hash_from_map
+from tendermint_tpu_torch.types.block_id import BlockID
+from tendermint_tpu_torch.types.errors import ValidationError
+from tendermint_tpu_torch.types.part_set import DEFAULT_PART_SIZE, PartSet
+from tendermint_tpu_torch.types.tx import Txs
+from tendermint_tpu_torch.types.vote import VOTE_TYPE_PRECOMMIT, Vote
+from tendermint_tpu_torch.utils.bit_array import BitArray
+
+
+@dataclass
+class Header:
+    chain_id: str
+    height: int
+    time: int  # ns since epoch
+    num_txs: int
+    last_block_id: BlockID
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    app_hash: bytes = b""
+    evidence_hash: bytes = b""
+
+    def hash(self) -> bytes:
+        """SimpleMerkle of the field map (reference `Header.Hash :173-188`).
+        Returns b"" if validators_hash is unset (header not yet filled).
+        The evidence commitment only enters the map when evidence is
+        present, so evidence-free headers hash exactly as before the
+        field existed (wire + hash backward compatibility in one rule).
+        """
+        if not self.validators_hash:
+            return b""
+        kvs = {
+            "chain_id": encode_string(self.chain_id),
+            "height": encode_uvarint(self.height),
+            "time": encode_uvarint(self.time),
+            "num_txs": encode_uvarint(self.num_txs),
+            "last_block_id": self.last_block_id.encode(),
+            "last_commit": self.last_commit_hash,
+            "data": self.data_hash,
+            "validators": self.validators_hash,
+            "app": self.app_hash,
+        }
+        if self.evidence_hash:
+            kvs["evidence"] = self.evidence_hash
+        return simple_hash_from_map(kvs)
+
+    def encode(self) -> bytes:
+        w = (
+            Writer()
+            .string(self.chain_id)
+            .uvarint(self.height)
+            .svarint(self.time)
+            .uvarint(self.num_txs)
+            .raw(self.last_block_id.encode())
+            .bytes(self.last_commit_hash)
+            .bytes(self.data_hash)
+            .bytes(self.validators_hash)
+            .bytes(self.app_hash)
+        )
+        # trailing optional field: absent when empty, so evidence-free
+        # headers are byte-identical to the pre-evidence encoding
+        if self.evidence_hash:
+            w.bytes(self.evidence_hash)
+        return w.build()
+
+    @classmethod
+    def decode_from(cls, r: Reader) -> "Header":
+        h = cls(
+            chain_id=r.string(),
+            height=r.uvarint(),
+            time=r.svarint(),
+            num_txs=r.uvarint(),
+            last_block_id=BlockID.decode_from(r),
+            last_commit_hash=r.bytes(),
+            data_hash=r.bytes(),
+            validators_hash=r.bytes(),
+            app_hash=r.bytes(),
+        )
+        if not r.done():
+            h.evidence_hash = r.bytes()
+        return h
+
+
+@dataclass
+class Commit:
+    """>2/3 precommits for a block, in validator-set order; absent votes are
+    None (reference `types/block.go:222-233`)."""
+
+    block_id: BlockID
+    precommits: list[Vote | None] = field(default_factory=list)
+
+    def height(self) -> int:
+        v = self.first_precommit()
+        return v.height if v else 0
+
+    def round(self) -> int:
+        v = self.first_precommit()
+        return v.round if v else 0
+
+    def first_precommit(self) -> Vote | None:
+        for v in self.precommits:
+            if v is not None:
+                return v
+        return None
+
+    def size(self) -> int:
+        return len(self.precommits)
+
+    def bit_array(self) -> BitArray:
+        ba = BitArray(len(self.precommits))
+        for i, v in enumerate(self.precommits):
+            ba.set(i, v is not None)
+        return ba
+
+    def is_commit(self) -> bool:
+        return len(self.precommits) > 0
+
+    def hash(self) -> bytes:
+        return simple_hash_from_byte_slices(
+            [v.encode() if v is not None else b"" for v in self.precommits]
+        )
+
+    def validate_basic(self) -> None:
+        if self.block_id.is_zero():
+            raise ValidationError("commit has zero BlockID")
+        if not self.precommits:
+            raise ValidationError("commit has no precommits")
+        h, r = self.height(), self.round()
+        for i, v in enumerate(self.precommits):
+            if v is None:
+                continue
+            if v.type != VOTE_TYPE_PRECOMMIT:
+                raise ValidationError(f"commit vote {i} is not a precommit")
+            if v.height != h or v.round != r:
+                raise ValidationError(f"commit vote {i} has wrong height/round")
+
+    def encode(self) -> bytes:
+        w = Writer().raw(self.block_id.encode()).uvarint(len(self.precommits))
+        for v in self.precommits:
+            w.bytes(v.encode() if v is not None else b"")
+        return w.build()
+
+    @classmethod
+    def decode_from(cls, r: Reader) -> "Commit":
+        block_id = BlockID.decode_from(r)
+        n = r.uvarint()
+        precommits: list[Vote | None] = []
+        for _ in range(n):
+            b = r.bytes()
+            precommits.append(Vote.decode(b) if b else None)
+        return cls(block_id=block_id, precommits=precommits)
+
+    @classmethod
+    def empty(cls) -> "Commit":
+        return cls(block_id=BlockID.zero(), precommits=[])
+
+
+@dataclass
+class EvidenceData:
+    """Misbehavior proofs committed in a block (reference
+    `types/block.go` EvidenceData). Hash = Merkle root over the encoded
+    evidence (`Header.evidence_hash`); empty lists hash to b"" so
+    evidence-free blocks are unchanged."""
+
+    evidence: list = field(default_factory=list)
+
+    def hash(self, hasher=None) -> bytes:
+        from tendermint_tpu_torch.types.evidence import evidence_hash
+
+        return evidence_hash(self.evidence, hasher)
+
+    def __len__(self) -> int:
+        return len(self.evidence)
+
+    def __iter__(self):
+        return iter(self.evidence)
+
+    def encode(self) -> bytes:
+        w = Writer().uvarint(len(self.evidence))
+        for ev in self.evidence:
+            w.bytes(ev.encode())
+        return w.build()
+
+    @classmethod
+    def decode_from(cls, r: Reader) -> "EvidenceData":
+        from tendermint_tpu_torch.types.evidence import decode_evidence
+
+        n = r.uvarint()
+        return cls(evidence=[decode_evidence(r.bytes()) for _ in range(n)])
+
+
+@dataclass
+class Data:
+    txs: Txs = field(default_factory=Txs)
+
+    def hash(self, hasher=None) -> bytes:
+        return self.txs.hash(hasher)
+
+    def encode(self) -> bytes:
+        w = Writer().uvarint(len(self.txs))
+        for tx in self.txs:
+            w.bytes(tx)
+        return w.build()
+
+    @classmethod
+    def decode_from(cls, r: Reader) -> "Data":
+        n = r.uvarint()
+        return cls(txs=Txs(r.bytes() for _ in range(n)))
+
+
+@dataclass
+class Block:
+    header: Header
+    data: Data
+    last_commit: Commit
+    evidence: EvidenceData = field(default_factory=EvidenceData)
+
+    @classmethod
+    def make_block(
+        cls,
+        height: int,
+        chain_id: str,
+        txs: Txs,
+        last_commit: Commit,
+        last_block_id: BlockID,
+        time: int,
+        validators_hash: bytes,
+        app_hash: bytes,
+        hasher=None,
+        evidence: list | None = None,
+    ) -> "Block":
+        """Build + fill a proposal block (reference `types/block.go:26-45`)."""
+        block = cls(
+            header=Header(
+                chain_id=chain_id,
+                height=height,
+                time=time,
+                num_txs=len(txs),
+                last_block_id=last_block_id,
+                app_hash=app_hash,
+                validators_hash=validators_hash,
+            ),
+            data=Data(txs=txs),
+            last_commit=last_commit,
+            evidence=EvidenceData(evidence=list(evidence) if evidence else []),
+        )
+        block.fill_header(hasher)
+        return block
+
+    def fill_header(self, hasher=None) -> None:
+        if not self.header.last_commit_hash:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = self.data.hash(hasher)
+        if not self.header.evidence_hash:
+            self.header.evidence_hash = self.evidence.hash(hasher)
+
+    def hash(self) -> bytes:
+        return self.header.hash()
+
+    def make_part_set(self, part_size: int = DEFAULT_PART_SIZE, hasher=None) -> PartSet:
+        return PartSet.from_data(self.encode(), part_size, hasher)
+
+    def hash_to(self, other_hash: bytes) -> bool:
+        h = self.hash()
+        return bool(h) and h == other_hash
+
+    def validate_basic(self, hasher=None) -> None:
+        """Cheap structural checks (reference `ValidateBasic :48-85`)."""
+        if self.header.height < 1:
+            raise ValidationError("block height must be >= 1")
+        if self.header.num_txs != len(self.data.txs):
+            raise ValidationError("header num_txs != len(txs)")
+        if self.header.height > 1 and not self.last_commit.precommits:
+            raise ValidationError("block at height > 1 missing last_commit")
+        if self.header.last_commit_hash != self.last_commit.hash():
+            raise ValidationError("last_commit_hash mismatch")
+        if self.header.data_hash != self.data.hash(hasher):
+            raise ValidationError("data_hash mismatch")
+        if self.header.evidence_hash != self.evidence.hash(hasher):
+            raise ValidationError("evidence_hash mismatch")
+        for ev in self.evidence:
+            ev.validate_basic()
+
+    def encode(self) -> bytes:
+        w = (
+            Writer()
+            .bytes(self.header.encode())
+            .bytes(self.data.encode())
+            .bytes(self.last_commit.encode())
+        )
+        # trailing optional section (mirrors Header.evidence_hash):
+        # evidence-free blocks keep the legacy 3-field wire form, so
+        # stored history and older peers decode unchanged
+        if len(self.evidence):
+            w.bytes(self.evidence.encode())
+        return w.build()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Block":
+        r = Reader(data)
+        header = Header.decode_from(Reader(r.bytes()))
+        d = Data.decode_from(Reader(r.bytes()))
+        lc = Commit.decode_from(Reader(r.bytes()))
+        evidence = (
+            EvidenceData.decode_from(Reader(r.bytes()))
+            if not r.done()
+            else EvidenceData()
+        )
+        r.expect_done()
+        return cls(header=header, data=d, last_commit=lc, evidence=evidence)
+
+    def block_id(self, part_size: int = DEFAULT_PART_SIZE) -> BlockID:
+        return BlockID(hash=self.hash(), parts_header=self.make_part_set(part_size).header)
+
+    def __str__(self) -> str:
+        return f"Block{{h={self.header.height} txs={self.header.num_txs} {self.hash().hex()[:12]}}}"

@@ -1,0 +1,94 @@
+"""Typed errors for the domain layer (reference: types/vote_set.go errors,
+types/priv_validator.go double-sign refusal)."""
+
+from __future__ import annotations
+
+
+class TMError(Exception):
+    """Base class for framework domain errors."""
+
+
+class ValidationError(TMError):
+    """A structure failed ValidateBasic-style checks."""
+
+
+class VoteError(TMError):
+    pass
+
+
+class ErrVoteUnexpectedStep(VoteError):
+    pass
+
+
+class ErrVoteInvalidValidatorIndex(VoteError):
+    pass
+
+
+class ErrVoteInvalidValidatorAddress(VoteError):
+    pass
+
+
+class ErrVoteInvalidSignature(VoteError):
+    pass
+
+
+class ErrVoteNonDeterministicSignature(VoteError):
+    pass
+
+
+class ErrVoteConflictingVotes(VoteError):
+    """Duplicate-vote evidence: one validator, two different votes for the
+    same (height, round, type) — reference `types/vote_set.go:182-195`."""
+
+    def __init__(self, vote_a, vote_b):
+        super().__init__(
+            f"conflicting votes from validator {vote_a.validator_address.hex()}"
+        )
+        self.vote_a = vote_a
+        self.vote_b = vote_b
+
+
+class ErrEvidenceUnprovable(ValidationError):
+    """Evidence naming a validator outside every retained validator set:
+    cannot be verified HERE (valset rotation / max-age horizon), which
+    is not the same as forged — relaying peers are not penalized for it
+    (`evidence/reactor.py`)."""
+
+
+class ErrValidatorsChanged(ValidationError):
+    """A commit's validators hash differs from the certifier's trusted
+    set (reference `certifiers/errors.go` IsValidatorsChangedErr)."""
+
+
+class ErrTooMuchChange(ValidationError):
+    """The trusted validator set overlaps the commit's signers by less
+    than the 2/3 continuity rule — a light client cannot jump this far
+    in one step and must bisect (reference `certifiers/errors.go`
+    IsTooMuchChangeErr, raised from `VerifyCommitAny
+    types/validator_set.go:284-349`)."""
+
+
+class ErrTrustExpired(ValidationError):
+    """The light client's trusted header outlived the trust period, so
+    the skip rule lost its slashing backstop — the pin must be
+    re-initialized. A CLIENT-side condition: never evidence that the
+    serving peer forged anything."""
+
+
+class ErrNoSourceCommit(ValidationError):
+    """The source provider had no commit to offer (peer fetch timed
+    out, provider lags the requested height, or no provider is wired).
+    An environmental fetch failure, not a forgery — callers must not
+    score the serving peer for it."""
+
+
+class ErrDoubleSign(TMError):
+    """PrivValidator refused to sign: height/round/step regression or
+    conflicting sign-bytes (reference `types/priv_validator.go:225-275`)."""
+
+
+class FatalConsensusError(TMError):
+    """An internal invariant/persistence failure (failed block apply, WAL
+    write, app commit). Unlike bad peer input, this must HALT consensus —
+    the reference panics (PanicConsensus/PanicSanity) so crash recovery
+    takes over rather than voting from a half-advanced state."""

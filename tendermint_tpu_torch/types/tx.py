@@ -1,0 +1,60 @@
+"""Transactions and Merkle proofs over them (reference `types/tx.go`).
+
+`Txs.hash` is a batched tree build — on the card this goes through the
+`TreeHasher` passed as `hasher=` (65k-tx blocks are BASELINE config 4);
+without one it is the host tree.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from tendermint_tpu_torch.crypto.hashing import sha256
+from tendermint_tpu_torch.merkle import (
+    SimpleProof,
+    simple_hash_from_byte_slices,
+    simple_proofs_from_byte_slices,
+    verify_proof,
+)
+
+Tx = bytes
+
+
+def tx_hash(tx: Tx) -> bytes:
+    """Content hash of an individual tx (indexing key, reference `Tx.Hash`)."""
+    return sha256(tx)
+
+
+class Txs(list):
+    """list[bytes] with tree hashing (reference `types/tx.go:33-46,71-88`)."""
+
+    def hash(self, hasher=None) -> bytes:
+        """Merkle root over txs; `hasher` is an optional TreeHasher backend."""
+        if hasher is not None:
+            return hasher.root_from_items(list(self))
+        return simple_hash_from_byte_slices(list(self))
+
+    def proof(self, i: int) -> "TxProof":
+        root, proofs = simple_proofs_from_byte_slices(list(self))
+        return TxProof(root_hash=root, data=self[i], proof=proofs[i])
+
+    def index(self, tx: Tx) -> int:
+        for i, t in enumerate(self):
+            if t == tx:
+                return i
+        return -1
+
+
+@dataclass
+class TxProof:
+    """Inclusion proof of one tx in a block's data hash
+    (reference `TxProof.Validate types/tx.go:101-112`)."""
+
+    root_hash: bytes
+    data: Tx
+    proof: SimpleProof
+
+    def validate(self, data_hash: bytes) -> bool:
+        if data_hash != self.root_hash:
+            return False
+        return verify_proof(self.root_hash, self.data, self.proof)

@@ -1,0 +1,105 @@
+"""Vote: a signed prevote/precommit (reference `types/vote.go`).
+
+Sign-bytes are canonical JSON wrapped with the chain ID
+(reference `types/canonical_json.go:50-53`, `types/vote.go:60-65`); the
+validator's identity is NOT in the sign-bytes — identity binds via the
+signature key, which is what makes commit signatures batchable as
+(pubkey, message, signature) triples with a shared message per block.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+from tendermint_tpu_torch.codec import Reader, Writer, canonical_dumps
+from tendermint_tpu_torch.types.block_id import BlockID
+from tendermint_tpu_torch.types.errors import ValidationError
+
+VOTE_TYPE_PREVOTE = 1
+VOTE_TYPE_PRECOMMIT = 2
+
+
+def is_vote_type_valid(t: int) -> bool:
+    return t in (VOTE_TYPE_PREVOTE, VOTE_TYPE_PRECOMMIT)
+
+
+@dataclass(frozen=True)
+class Vote:
+    validator_address: bytes
+    validator_index: int
+    height: int
+    round: int
+    timestamp: int  # ns since epoch
+    type: int
+    block_id: BlockID
+    signature: bytes = b""
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        return canonical_dumps(
+            {
+                "chain_id": chain_id,
+                "vote": {
+                    "block_id": self.block_id.to_dict(),
+                    "height": self.height,
+                    "round": self.round,
+                    "timestamp": self.timestamp,
+                    "type": self.type,
+                },
+            }
+        )
+
+    def with_signature(self, sig: bytes) -> "Vote":
+        return replace(self, signature=sig)
+
+    def validate_basic(self) -> None:
+        if not is_vote_type_valid(self.type):
+            raise ValidationError(f"invalid vote type {self.type}")
+        if self.height < 1:
+            raise ValidationError("vote height must be >= 1")
+        if self.round < 0:
+            raise ValidationError("negative vote round")
+        if self.validator_index < 0:
+            raise ValidationError("negative validator index")
+
+    def encode(self) -> bytes:
+        return (
+            Writer()
+            .bytes(self.validator_address)
+            .uvarint(self.validator_index)
+            .uvarint(self.height)
+            .uvarint(self.round)
+            .svarint(self.timestamp)
+            .uvarint(self.type)
+            .raw(self.block_id.encode())
+            .bytes(self.signature)
+            .build()
+        )
+
+    @classmethod
+    def decode_from(cls, r: Reader) -> "Vote":
+        return cls(
+            validator_address=r.bytes(),
+            validator_index=r.uvarint(),
+            height=r.uvarint(),
+            round=r.uvarint(),
+            timestamp=r.svarint(),
+            type=r.uvarint(),
+            block_id=BlockID.decode_from(r),
+            signature=r.bytes(),
+        )
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Vote":
+        r = Reader(data)
+        v = cls.decode_from(r)
+        r.expect_done()
+        return v
+
+    def __str__(self) -> str:
+        tname = {VOTE_TYPE_PREVOTE: "Prevote", VOTE_TYPE_PRECOMMIT: "Precommit"}.get(
+            self.type, "?"
+        )
+        return (
+            f"Vote{{{self.validator_index}:{self.validator_address.hex()[:8]} "
+            f"{self.height}/{self.round}/{tname} {self.block_id}}}"
+        )

@@ -585,3 +585,52 @@ def test_ledger_records_match_the_wrappers_launches(dev, signed, monkeypatch):
         "verify": 4, "tables": 2, "hash": 2, "finish_encode_compare": 6}
     assert recs[1]["queue"] == "ledger-card" and recs[2]["rows_padded"] == 0
     v.close()
+
+
+def test_port_types_verify_on_the_card(dev, monkeypatch):
+    """The port's own `ValidatorSet` on the card's stack at minimum
+    device batch 0: a 300-validator commit through `verify_commit`
+    launches the entries chain and the finish, `verify_commit_any` the
+    ladder and the finish; a forged precommit raises naming its
+    validator."""
+    from tendermint_tpu_torch.crypto import PrivKey
+    from tendermint_tpu_torch.services import verifier as V
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.types import (
+        VOTE_TYPE_PRECOMMIT, BlockID, Commit, PartSetHeader, ValidationError, Validator, ValidatorSet, Vote,
+    )
+
+    chain = "card-chain"
+    monkeypatch.setattr(V, "_DEFAULTS", {})
+    stack = V.default_verifier(dev)
+    stack.inner.primary._min_batch = 0
+    rng = np.random.default_rng(61)
+    keys = [PrivKey(rng.bytes(32)) for _ in range(300)]
+    vs = ValidatorSet([Validator(k.pub_key.address, k.pub_key, 10) for k in keys])
+    by_addr = {k.pub_key.address: k for k in keys}
+    bid = BlockID(rng.bytes(32), PartSetHeader(total=1, hash=rng.bytes(20)))
+    pre = []
+    for i, val in enumerate(vs.validators):
+        vote = Vote(val.address, i, 9, 0, 1000 + i, VOTE_TYPE_PRECOMMIT, bid)
+        pre.append(vote.with_signature(by_addr[val.address].sign(vote.sign_bytes(chain))))
+    commit = Commit(block_id=bid, precommits=pre)
+    forged = Commit(block_id=bid, precommits=list(pre))
+    forged.precommits[17] = pre[17].with_signature(bytes([pre[17].signature[0] ^ 1]) + pre[17].signature[1:])
+
+    def counts():
+        return (TT.sum_entries.launches, TL.ladder.launches, TT.finish_encode_compare.launches)
+
+    light = CoalescingVerifier(stack.inner)  # an empty signature cache of its own
+    try:
+        before = counts()
+        vs.verify_commit(chain, bid, 9, commit, verifier=stack)
+        with pytest.raises(ValidationError, match="invalid commit signature from validator 17$"):
+            vs.verify_commit(chain, bid, 9, forged, verifier=stack)
+        mid = counts()
+        vs.verify_commit_any(ValidatorSet(list(vs.validators)), chain, bid, 9, commit, verifier=light)
+        after = counts()
+    finally:
+        light.coalescer.close()
+        stack.close()
+    assert mid[0] - before[0] == 2 and mid[1] == before[1] and mid[2] - before[2] == 2
+    assert after[0] == mid[0] and after[1] - mid[1] == 1 and after[2] - mid[2] == 1
