@@ -72,8 +72,26 @@ bytes):
    launch and 16 `merkle_level` launches a data_hash, a tampered tx
    refused). The lane collection (`_collect_commit_sigs` and
    `_commit_lanes`) is timed alone. Its sets leave the table cache as
-   they found it; its launches stand on its own `types` line; then the
-   stack is closed;
+   they found it; its launches stand on its own `types` line;
+9. state, run after phase 8 on the same stack: block execution and the
+   light client on the port's own `db`, `abci`, `state` and
+   `certifiers`: a chain of phase 2's 10,000 validators (equal power,
+   `PersistentKVStoreApp` on a `MemDB`, a `KVTxIndexer`) applies heights
+   1-5 through `apply_block` (height 2 swaps 1,000 validators for new
+   keys with `val:` txs, height 3 carries 65,536 txs of 250 bytes, the
+   others 256), each height's seconds split into its steps, the new
+   set's table prebuild clocked beside height 4 (the new set's first
+   commit); a forged last commit and a wrong app hash must raise before
+   the app runs and leave the state as it was; the app hash, the stored
+   state, the validator sets and the tx index are checked against
+   hashlib and fresh sets; a light client (`DynamicCertifier` certify
+   and update across the change, then an `InquiringCertifier` over a
+   `MemProvider` into a `FullCommitStore` on SQLite) follows the chain;
+   `StaticCertifier.certify_batch` replays the 16 FullCommits of a
+   chain of phase 3's 1,000 validators in one call (5 times, commits/s),
+   and a batch with one forged commit must raise naming its entry and
+   height. Each step's launches are checked and stand on the `state` and
+   `certifiers` lines; then the stack is closed;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -1924,6 +1942,426 @@ def run_types(stack, inp, sync, sizes, hashed, reps: int) -> dict:
     return rep
 
 
+# -- phase 9: block execution and the light client on the port's own code ---
+
+STATE_CHAIN = "chip-smoke-chain2"
+REPLAY_CHAIN = "chip-smoke-replay"
+STATE_TXS = 65536  # height 3: PERF.md's data_hash cell, each tx with its own key
+STATE_SMALL_TXS = 256  # every other height
+STATE_HEIGHTS = 5
+STATE_CHANGE = 10  # height 2 swaps 1 in STATE_CHANGE validators (10% of the power)
+REPLAY_HEIGHTS = 17  # 16 FullCommits after the first height, one certify_batch
+
+
+def smoke_chain(inp, keys, app, verifier, hasher, chain_id):
+    """`tendermint_tpu_torch.testing.ChainSim` over the smoke's keys: the
+    genesis set is `keys` of `inp` at power TYPES_POWER, and each commit's
+    precommits are signed directly with the validators' seeds (`seeds`,
+    by address), with no check of each vote as it is added: the chain's
+    own verify of the commit is what the phase measures."""
+    from tendermint_tpu_torch.crypto import PubKey
+    from tendermint_tpu_torch.db.kv import MemDB
+    from tendermint_tpu_torch.testing import ChainSim
+    from tendermint_tpu_torch.types import (
+        VOTE_TYPE_PRECOMMIT, BlockID, Commit, GenesisDoc, GenesisValidator, Vote,
+    )
+
+    class SmokeChain(ChainSim):
+        def _commit_for(self, block, part_set):
+            bid = BlockID(block.hash(), part_set.header)
+            h = block.header.height
+            pre = []
+            for idx, val in enumerate(self.state.validators.validators):
+                v = Vote(val.address, idx, h, 0, TYPES_TIME_NS + idx, VOTE_TYPE_PRECOMMIT, bid)
+                pre.append(v.with_signature(inp.ref.sign(self.seeds[val.address], v.sign_bytes(self.chain_id))))
+            return Commit(block_id=bid, precommits=pre)
+
+    gen = GenesisDoc(chain_id=chain_id, genesis_time=TYPES_TIME_NS,
+                     validators=[GenesisValidator(pub_key=PubKey(inp.pubs[k]), power=TYPES_POWER) for k in keys])
+    chain = SmokeChain(app=app, db=MemDB(), chain_id=chain_id, hasher=hasher, verifier=verifier, genesis=(gen, []))
+    chain.seeds = {PubKey(inp.pubs[k]).address: inp.seeds[k] for k in keys}
+    return chain
+
+
+class Splits:
+    """Seconds and calls of each step of `apply_block`, by timing
+    wrappers around the functions it calls (module globals and class
+    attributes of the port), put in place while the context is open."""
+
+    def __init__(self):
+        from tendermint_tpu_torch.abci.client import AppConnConsensus
+        from tendermint_tpu_torch.state import execution, state
+        from tendermint_tpu_torch.state.txindex import KVTxIndexer
+        from tendermint_tpu_torch.types import Block, ValidatorSet
+
+        self.targets = {
+            "validate_block": (execution, "validate_block"),
+            "verify_commit": (ValidatorSet, "verify_commit"),
+            "validate_basic": (Block, "validate_basic"),
+            "exec": (execution, "exec_block_on_proxy_app"),
+            "save_responses": (state.State, "save_abci_responses"),
+            "tx_index": (KVTxIndexer, "add_batch"),
+            "set_validators": (state.State, "set_block_and_validators"),
+            "app_commit": (AppConnConsensus, "commit_sync"),
+            "state_save": (state.State, "save"),
+        }
+        self.reset()
+
+    def reset(self) -> None:
+        self.s = dict.fromkeys(self.targets, 0.0)
+        self.calls = dict.fromkeys(self.targets, 0)
+
+    def __enter__(self):
+        self.saved = {}
+        for name, (owner, attr) in self.targets.items():
+            orig = owner.__dict__[attr]
+            self.saved[name] = orig
+
+            def timed_call(*a, _orig=orig, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    self.s[_name] += time.perf_counter() - t0
+                    self.calls[_name] += 1
+
+            setattr(owner, attr, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self.saved[name])
+
+
+class PrebuildClock:
+    """When each table prebuild of the backend ran: (start, end, keys)."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.runs: list = []
+
+    def __enter__(self):
+        orig = self.backend._prebuild
+
+        def clocked(key, pubs):
+            t0 = time.perf_counter()
+            try:
+                orig(key, pubs)
+            finally:
+                self.runs.append((t0, time.perf_counter(), len(pubs)))
+
+        self.backend._prebuild = clocked
+        return self
+
+    def wait(self, timeout: float = 120.0) -> None:
+        with self.backend._cache_lock:
+            threads = list(self.backend._prebuilds.values())
+        for t in threads:
+            t.join(timeout=timeout)
+            if t.is_alive():
+                raise AssertionError("state: a table prebuild did not end")
+
+    def __exit__(self, *exc):
+        self.wait()
+        del self.backend._prebuild
+
+
+def state_txs(rng, height: int, leaving, joining) -> list[bytes]:
+    """Height 2: the `leaving` keys' removals (power 0) and the `joining`
+    keys at TYPES_POWER; height 3: STATE_TXS key=value txs of TX_BYTES with
+    distinct keys; else STATE_SMALL_TXS small ones."""
+    if height == 2:
+        return ([b"val:%s/0" % pk.hex().encode() for pk in leaving]
+                + [b"val:%s/%d" % (pk.hex().encode(), TYPES_POWER) for pk in joining])
+    count, size = (STATE_TXS, TX_BYTES) if height == 3 else (STATE_SMALL_TXS, 40)
+    body = rng.integers(0, 256, size=(count, size - 10), dtype=np.uint8)
+    return [b"h%d-%06d=" % (height, i) + bytes(row) for i, row in enumerate(body)]
+
+
+def kv_app_hash(txs_by_height) -> bytes:
+    """The KV app's hash recomputed with hashlib from the txs applied:
+    the last value of each key, a SHA-256 chained over the sorted keys."""
+    import hashlib
+
+    data = {}
+    for txs in txs_by_height:
+        for tx in txs:
+            if tx.startswith(b"val:"):
+                continue
+            k, v = tx.split(b"=", 1) if b"=" in tx else (tx, tx)
+            data[k] = v
+    acc = b""
+    for k in sorted(data):
+        acc = hashlib.sha256(acc + k + b"\x00" + data[k] + b"\x01").digest()
+    return acc
+
+
+def run_state(stack, inp, sync, sizes, reps: int) -> tuple[dict, dict]:
+    """Phase 9: block execution and the light client on the port's own
+    `db`, `abci`, `state` and `certifiers`, through `default_verifier()`
+    and `default_hasher()`. A chain of `n` validators (phase 2's keys,
+    equal power) applies heights 1-STATE_HEIGHTS through `apply_block`
+    with `PersistentKVStoreApp` on a `MemDB` and a `KVTxIndexer`; height
+    2 swaps one validator in STATE_CHANGE for a new key, height 3 carries
+    STATE_TXS txs. Each height's seconds are split by `Splits`; the new
+    set's table prebuild is clocked beside height 4, whose commit is the
+    first the new set signs. Then a forged last commit and a wrong app
+    hash, which must raise before the app runs; a light client
+    (`DynamicCertifier`, then an `InquiringCertifier` over a `MemProvider`
+    into a `FullCommitStore` on SQLite) follows the chain across the
+    change; and `StaticCertifier.certify_batch` replays the 16 FullCommits
+    of a chain of `ns` validators (phase 3's keys) in one call, `reps`
+    times. Returns the `state` and `certifiers` reports."""
+    import tempfile
+
+    from tendermint_tpu_torch.abci.apps import KVStoreApp, PersistentKVStoreApp
+    from tendermint_tpu_torch.certifiers import DynamicCertifier, FullCommit, InquiringCertifier, MemProvider
+    from tendermint_tpu_torch.certifiers import StaticCertifier
+    from tendermint_tpu_torch.crypto import PubKey
+    from tendermint_tpu_torch.db.fullcommit import FullCommitStore
+    from tendermint_tpu_torch.db.kv import MemDB, SQLiteDB
+    from tendermint_tpu_torch.merkle import simple as host
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.state import apply_block, load_state
+    from tendermint_tpu_torch.state.txindex import KVTxIndexer
+    from tendermint_tpu_torch.types import Commit, Validator, ValidatorSet
+    from tendermint_tpu_torch.types.tx import tx_hash
+
+    n, ns, k = sizes
+    hasher = default_hasher()
+    health = StackHealth(stack.inner, hasher)
+    backend = stack.inner.primary
+    rng = np.random.default_rng(inp.seed + 9)
+    srep: dict = {"validators": n}
+    crep: dict = {}
+
+    def expect(what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"state {what}: {got!r}, expected {want!r}")
+
+    def fresh(fn):
+        """`fn(verifier)` on a coalescer of its own (an empty signature
+        cache) over the stack's resilient layer and tables."""
+        v = CoalescingVerifier(stack.inner)
+        try:
+            return fn(v)
+        finally:
+            v.coalescer.close()
+
+    with TableCacheKept(backend), PrebuildClock(backend) as clock:
+        # 1. the chain: heights 1..STATE_HEIGHTS across a set change
+        t0 = time.perf_counter()
+        n_swap = n // STATE_CHANGE
+        joining_seeds = [rng.bytes(32) for _ in range(n_swap)]
+        joining = [inp.ref.public_from_seed(s) for s in joining_seeds]
+        leaving = inp.pubs[n - n_swap:n]
+        app = PersistentKVStoreApp(MemDB())
+        chain = smoke_chain(inp, range(n), app, stack, hasher, STATE_CHAIN)
+        chain.seeds.update({PubKey(pk).address: s for pk, s in zip(joining, joining_seeds)})
+        index = KVTxIndexer(MemDB())
+        srep["setup_s"] = time.perf_counter() - t0
+        heights, applied = [], []
+        with Splits() as splits:
+            for h in range(1, STATE_HEIGHTS + 1):
+                txs = state_txs(rng, h, leaving, joining)
+                row: dict = {"height": h, "txs": len(txs)}
+                t0 = time.perf_counter()
+                block, ps = chain.make_next_block(txs)
+                row["make_block_s"] = time.perf_counter() - t0
+                commit = None
+                if h < STATE_HEIGHTS:  # the last height's commit is never verified
+                    t0 = time.perf_counter()
+                    commit = chain._commit_for(block, ps)
+                    row["sign_s"] = time.perf_counter() - t0
+                if h == STATE_HEIGHTS:
+                    srep["forged"] = state_forged(chain, block, ps, fresh, splits, expect)
+                    health.check("state forged inputs")
+                if h == 4:
+                    row["prebuild_running_at_start"] = bool(backend._prebuilds)
+                    hits = _counter("tendermint_verify_table_cache_total", event="hit")
+                splits.reset()
+                reset_counts()
+                t_start = time.perf_counter()
+                row["apply_s"] = timed(lambda: apply_block(
+                    chain.state, block, ps.header, chain.conns.consensus, verifier=stack, tx_indexer=index,
+                    hasher=hasher), sync)
+                c = counts()
+                row["split_s"], row["launches"] = dict(splits.s), c
+                if h >= 2:
+                    _launched(c, ("madd_chain_entries", "finish_encode_compare"), f"height {h}", phase="state")
+                if h == 3:
+                    levels = (STATE_TXS - 1).bit_length()
+                    expect("height 3 data_hash launches", (c["sha256_masked"], c["merkle_level"]), (1, levels))
+                    expect("height 3 data_hash", block.header.data_hash, host.simple_hash_from_byte_slices(txs))
+                if h == 4:
+                    row["start_s"] = t_start
+                    row["tables_from_cache"] = _counter("tendermint_verify_table_cache_total", event="hit") > hits
+                if h == 2:
+                    row["changed"] = chain.state.last_height_validators_changed
+                chain.blocks.append(block)
+                if commit is not None:
+                    chain.commits.append(commit)
+                applied.append(txs)
+                expect(f"height {h}", chain.state.last_block_height, h)
+                heights.append(row)
+                health.check(f"state height {h}")
+        # the outcome, against a plain reference
+        expect("stored state", load_state(chain.db).to_json(), chain.state.to_json())
+        expect("app hash", chain.state.app_hash, kv_app_hash(applied))
+        expect("app height", app.info().last_block_height, STATE_HEIGHTS)
+        want_set = [PubKey(pk) for pk in inp.pubs[:n - n_swap] + joining]
+        want_hash = ValidatorSet([Validator(pk.address, pk, TYPES_POWER) for pk in want_set]).hash()
+        expect("validators after the change", chain.state.validators.hash(), want_hash)
+        expect("validators changed at", chain.state.last_height_validators_changed, 3)
+        for h in (1, 2):
+            expect(f"validators of height {h}", chain.state.load_validators(h).hash(), chain.blocks[0].header.validators_hash)
+        for h in (3, 4, 5):
+            expect(f"validators of height {h}", chain.state.load_validators(h).hash(), want_hash)
+        sample = applied[2][STATE_TXS // 3]
+        got = index.get(tx_hash(sample))
+        expect("tx index", (got.height, got.index, got.tx), (3, STATE_TXS // 3, sample))
+        key, value = sample.split(b"=", 1)
+        expect("app query", app.query("/key", key).value, value)
+        # the prebuild of the new set's tables, beside height 4
+        clock.wait()
+        if len(clock.runs) != 1:
+            raise AssertionError(f"state: {len(clock.runs)} table prebuilds, expected 1")
+        p_start, p_end, p_keys = clock.runs[0]
+        h4 = heights[3]
+        # the same build again with nothing else running: the new set's
+        # tables dropped, rebuilt from the old set's (a gather and the new
+        # keys' build)
+        new_set = tuple(v.pub_key.data for v in chain.state.validators)
+        with backend._cache_lock:
+            backend._tables.pop(backend._cache_key(new_set), None)
+        srep["prebuild"] = {
+            "keys": p_keys, "s": p_end - p_start, "alone_s": timed(lambda: backend.tables_for(new_set), sync),
+            "height4_started_s_after": h4.pop("start_s") - p_start,
+            "height4_waited": h4["prebuild_running_at_start"] or not h4["tables_from_cache"],
+        }
+        srep["heights"] = heights
+
+        # 2. the light client on that chain, with a signature cache of its own
+        fcs = {h: FullCommit(chain.blocks[h - 1].header, chain.commits[h - 1], chain.state.load_validators(h))
+               for h in range(1, STATE_HEIGHTS)}
+        light = CoalescingVerifier(stack.inner)
+        try:
+            dyn = DynamicCertifier(STATE_CHAIN, fcs[1].validators, height=1, verifier=light)
+            reset_counts()
+            crep["certify_s"] = timed(lambda: dyn.certify(fcs[2]), sync)
+            crep["certify_launches"] = c = counts()
+            _launched(c, ("madd_chain_entries", "finish_encode_compare"), "certify", phase="certifiers")
+            reset_counts()
+            crep["update_s"] = timed(lambda: dyn.update(fcs[3]), sync)
+            crep["update_launches"] = c = counts()
+            _launched(c, ("ladder", "finish_encode_compare"), "update", phase="certifiers")
+            expect("dynamic certifier height", dyn.last_height, 3)
+            crep["update_lanes"] = sum(1 for v in fcs[3].validators.validators if fcs[1].validators.has_address(v.address))
+        finally:
+            light.coalescer.close()
+        source = MemProvider()
+        for fc in fcs.values():
+            source.store_commit(fc)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trusted.db")
+            store = FullCommitStore(SQLiteDB(path))
+            walks = _hist("tendermint_lightclient_walk_seconds", mode="sequential")[1]
+            reset_counts()
+
+            def walk(v):
+                inq = InquiringCertifier(STATE_CHAIN, fcs[1], store, source, verifier=v)
+                inq.certify(fcs[STATE_HEIGHTS - 1])
+                return inq
+
+            crep["inquiring_s"] = timed(lambda: fresh(walk), sync)
+            crep["inquiring_launches"] = c = counts()
+            _launched(c, ("ladder", "finish_encode_compare"), "inquiring walk", phase="certifiers")
+            expect("walks timed", _hist("tendermint_lightclient_walk_seconds", mode="sequential")[1], walks + 1)
+            store._db.close()
+            again = FullCommitStore(SQLiteDB(path))
+            expect("trusted heights", again.heights(), [1, STATE_HEIGHTS - 1])
+            expect("trusted commit", again.get_exact(STATE_HEIGHTS - 1).encode(), fcs[STATE_HEIGHTS - 1].encode())
+            again._db.close()
+        health.check("certifiers light client")
+
+        # 3. light-client replay: certify_batch of a chain's 16 FullCommits
+        t0 = time.perf_counter()
+        chain2 = smoke_chain(inp, range(ns), KVStoreApp(), stack, hasher, REPLAY_CHAIN)
+        replay_apply = []
+        for h in range(1, REPLAY_HEIGHTS + 1):
+            replay_apply.append(timed(lambda: chain2.advance(txs=[b"r%d=%d" % (h, h)]), sync))
+        crep["replay_chain_s"] = time.perf_counter() - t0
+        crep["replay_advance_s_median"] = statistics.median(replay_apply)
+        batch = [FullCommit(chain2.blocks[h - 1].header, chain2.commits[h - 1], chain2.state.load_validators(h))
+                 for h in range(2, REPLAY_HEIGHTS + 1)]
+        static_set = batch[0].validators
+        replay_s = []
+        for _ in range(reps):
+            reset_counts()
+            replay_s.append(timed(lambda: fresh(lambda v: StaticCertifier(
+                REPLAY_CHAIN, static_set, verifier=v).certify_batch(batch)), sync))
+            c = counts()
+            _launched(c, ("madd_chain_fused", "finish_encode_compare"), "replay", phase="certifiers")
+        crep["replay_launches"] = c
+        e_bad, lane_bad = 5, ns // 5
+        forged_batch = list(batch)
+        fc = batch[e_bad]
+        pre = list(fc.commit.precommits)
+        pre[lane_bad] = pre[lane_bad].with_signature(forge(pre[lane_bad].signature))
+        forged_batch[e_bad] = FullCommit(fc.header, Commit(block_id=fc.commit.block_id, precommits=pre), fc.validators)
+        got = fresh(lambda v: types_outcome(lambda: StaticCertifier(
+            REPLAY_CHAIN, static_set, verifier=v).certify_batch(forged_batch)))
+        expect("forged batch", got, f"invalid commit signature from validator {lane_bad} "
+                                    f"(batch entry {e_bad}, height {fc.height()})")
+        crep["replay_forged"] = got
+        med = statistics.median(replay_s)
+        crep["replay"] = {"validators": ns, "commits": len(batch), "s_median": med, "s": replay_s,
+                          "commits_per_s": len(batch) / med}
+        health.check("certifiers replay")
+    log({"phase": "state", **srep})
+    log({"phase": "certifiers", **crep})
+    return srep, crep
+
+
+def state_forged(chain, block, ps, fresh, splits, expect) -> dict:
+    """The forged inputs at the chain's next height, each on a coalescer
+    of its own: a last commit with one forged precommit, then a block
+    with a wrong app hash. Both must raise before the app runs and leave
+    the state as it was."""
+    from tendermint_tpu_torch.state import apply_block
+    from tendermint_tpu_torch.types import Commit
+
+    out: dict = {}
+    before = chain.state.to_json()
+    idx = len(chain.commits[-1].precommits) // 7
+    saved = chain.commits[-1]
+    pre = list(saved.precommits)
+    pre[idx] = pre[idx].with_signature(forge(pre[idx].signature))
+    chain.commits[-1] = Commit(block_id=saved.block_id, precommits=pre)
+    forged_block, forged_ps = chain.make_next_block([bytes(tx) for tx in block.data.txs])
+    chain.commits[-1] = saved
+    wrong = chain.make_next_block([bytes(tx) for tx in block.data.txs])[0]
+    wrong.header.app_hash = b"\x01" * 32
+    cases = (
+        ("last_commit", forged_block, forged_ps, f"invalid commit signature from validator {idx}"),
+        ("app_hash", wrong, ps, f"wrong app_hash: got {'01' * 32}, want {chain.state.app_hash.hex()}"),
+    )
+    for name, b, p, want in cases:
+        splits.reset()
+        reset_counts()
+        got = fresh(lambda v: types_outcome(lambda: apply_block(
+            chain.state, b, p.header, chain.conns.consensus, verifier=v, hasher=chain.hasher)))
+        c = counts()
+        expect(f"forged {name}", got, want)
+        expect(f"forged {name}: the app ran", splits.calls["exec"] + splits.calls["app_commit"], 0)
+        expect(f"forged {name}: state", chain.state.to_json(), before)
+        if name == "last_commit":
+            _launched(c, ("madd_chain_entries", "finish_encode_compare"), "forged last commit", phase="state")
+        out[name] = {"raised": got, "launches": c}
+    return out
+
+
 # -- phase 7: the mesh ---------------------------------------------------------
 
 MESH_SHARDS = 4
@@ -2551,6 +2989,9 @@ def run(args) -> dict:
         hashed=(txs, bytes.fromhex(hrep["data_hash"]["sha256"]["root"])),
         reps=args.reps,
     )
+
+    # -- phase 9: block execution and the light client on the port's code --
+    report["state"], report["certifiers"] = run_state(stack, inp, sync, sizes=(n, ns, k), reps=args.reps)
     stack.close()
     default_dispatch_queue().close()
 

@@ -57,6 +57,8 @@ def summary(report: dict) -> dict:
         "window_commits_per_s": report.get("fast_sync", {}).get("commits_per_s"),
         "flat_verifies_per_s": report.get("flat", {}).get("verifies_per_s"),
         "flat_warm_s": report.get("flat", {}).get("warm_batch_s_median"),
+        "state_apply_s": [h["apply_s"] for h in report.get("state", {}).get("heights", [])] or None,
+        "replay_commits_per_s": report.get("certifiers", {}).get("replay", {}).get("commits_per_s"),
         "stages": report.get("stages"),
         "device": {k: {"device_s": v.get("device_s"), "kernels": v.get("device_kernels"),
                        "busy_share": v.get("busy_share")} for k, v in dev.items()},

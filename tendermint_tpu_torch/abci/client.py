@@ -1,0 +1,148 @@
+"""ABCI client + the three-connection proxy (reference `proxy/`).
+
+`AppConns` owns consensus/mempool/query connections to one application
+(`proxy/multi_app_conn.go:12-18`). The local client serializes access
+with one mutex per client — matching the reference's in-proc
+`localClient` — while separate connections keep mempool CheckTx from
+blocking consensus DeliverTx and vice versa.
+
+Async semantics: the reference pipelines `DeliverTxAsync` over a socket
+and collects callbacks (`state/execution.go:50-101`). In-process, calls
+are synchronous but the `*_async` names keep the pipelining seam: a
+remote transport can reintroduce true overlap without changing callers.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+from tendermint_tpu_torch.abci.application import Application
+from tendermint_tpu_torch.abci.types import Result, ResultInfo, ResultQuery, Validator
+
+
+class _LocalClient:
+    """Mutex-wrapped in-process app access (reference localClient)."""
+
+    def __init__(self, app: Application, lock: threading.Lock) -> None:
+        self._app = app
+        self._lock = lock
+        self.error: Exception | None = None
+
+    # every call holds the shared app mutex
+
+
+class AppConnQuery(_LocalClient):
+    def echo_sync(self, msg: str) -> str:
+        with self._lock:
+            return self._app.echo(msg)
+
+    def info_sync(self) -> ResultInfo:
+        with self._lock:
+            return self._app.info()
+
+    def query_sync(self, path: str, data: bytes, height: int = 0, prove: bool = False) -> ResultQuery:
+        with self._lock:
+            return self._app.query(path, data, height, prove)
+
+
+class AppConnMempool(_LocalClient):
+    def check_tx_async(self, tx: bytes, cb: Callable[[Result], None] | None = None) -> Result:
+        with self._lock:
+            res = self._app.check_tx(tx)
+        if cb is not None:
+            cb(res)
+        return res
+
+    def flush_sync(self) -> None:
+        pass
+
+    def flush_async(self) -> None:
+        pass
+
+
+def _accepts_evidence(begin_block) -> bool:
+    """True when an app's begin_block takes the evidence argument —
+    legacy 2-arg overrides predate the evidence pipeline and must keep
+    working without a TypeError probe on the hot path."""
+    import inspect
+
+    try:
+        params = inspect.signature(begin_block).parameters
+    except (TypeError, ValueError):
+        return True  # exotic callables: assume the current interface
+    if any(
+        p.kind is inspect.Parameter.VAR_POSITIONAL
+        or p.kind is inspect.Parameter.VAR_KEYWORD
+        for p in params.values()
+    ):
+        return True
+    return "evidence" in params
+
+
+class AppConnConsensus(_LocalClient):
+    def init_chain_sync(self, validators: list[Validator]) -> None:
+        with self._lock:
+            self._app.init_chain(validators)
+
+    def begin_block_sync(self, block_hash: bytes, header, evidence=()) -> None:
+        accepts = getattr(self, "_bb_accepts_evidence", None)
+        if accepts is None:
+            accepts = self._bb_accepts_evidence = _accepts_evidence(
+                self._app.begin_block
+            )
+        with self._lock:
+            if accepts:
+                self._app.begin_block(block_hash, header, evidence=evidence)
+            else:
+                self._app.begin_block(block_hash, header)
+
+    def deliver_tx_async(self, tx: bytes, cb: Callable[[Result], None] | None = None) -> Result:
+        with self._lock:
+            res = self._app.deliver_tx(tx)
+        if cb is not None:
+            cb(res)
+        return res
+
+    def end_block_sync(self, height: int) -> list[Validator]:
+        with self._lock:
+            return self._app.end_block(height)
+
+    def commit_sync(self) -> Result:
+        with self._lock:
+            return self._app.commit()
+
+
+class AppConns:
+    """The three typed connections to one application."""
+
+    def __init__(self, consensus: AppConnConsensus, mempool: AppConnMempool, query: AppConnQuery):
+        self.consensus = consensus
+        self.mempool = mempool
+        self.query = query
+
+    def close(self) -> None:
+        """Release transport resources (no-op for in-proc conns; the
+        socket creator's conns close their TCP links)."""
+        for conn in (self.consensus, self.mempool, self.query):
+            closer = getattr(conn, "close", None)
+            if closer is not None:
+                closer()
+
+
+ClientCreator = Callable[[], AppConns]
+
+
+def local_client_creator(app: Application) -> ClientCreator:
+    """In-proc creator: three connections sharing one app mutex
+    (reference `proxy/client.go:24-44` NewLocalClientCreator)."""
+
+    def create() -> AppConns:
+        lock = threading.Lock()
+        return AppConns(
+            AppConnConsensus(app, lock),
+            AppConnMempool(app, lock),
+            AppConnQuery(app, lock),
+        )
+
+    return create

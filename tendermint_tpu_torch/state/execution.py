@@ -1,0 +1,211 @@
+"""Block validation + execution pipeline (reference `state/execution.go`).
+
+`apply_block` is the commit-side hot path (§3.2 tail): validate the block
+(including the batched `LastValidators.verify_commit` — the card's
+verify), stream txs through the app, save ABCIResponses *before* the app
+commit (crash recovery), rotate validator sets, commit the app under the
+mempool lock, and persist. Fail points bracket every persistence step
+exactly like the reference (`state/execution.go:224-243`).
+
+The port's copy of `tendermint_tpu/state/execution.py`. `verifier=None`
+reaches the port's `ValidatorSet` and evidence checks as it is, so it
+means the port's `default_verifier()`, the card's stack, which raises
+without a card; `hasher=None` is the host tree. On a set change the
+verifier's `prebuild` starts the next set's table build on a thread of
+its own (`services/verifier.py`).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+from tendermint_tpu_torch.abci.client import AppConnConsensus
+from tendermint_tpu_torch.abci.types import Result
+from tendermint_tpu_torch.state.state import ABCIResponses, State
+from tendermint_tpu_torch.types.block import Block
+from tendermint_tpu_torch.types.errors import ValidationError
+from tendermint_tpu_torch.types.part_set import PartSetHeader
+from tendermint_tpu_torch.types.services import MempoolI, NopMempool
+from tendermint_tpu_torch.utils.fail import fail_point
+
+
+class BlockExecutionError(Exception):
+    pass
+
+
+def validate_block(
+    state: State,
+    block: Block,
+    verifier=None,
+    commit_preverified: bool = False,
+    hasher=None,
+) -> None:
+    """Reference `validateBlock` (`state/execution.go:181-206`): header
+    fields against state, then LastCommit against LastValidators — the
+    latter as one signature batch. `commit_preverified=True` skips the
+    LastCommit signature pass ONLY (structure still checked): fast-sync
+    batch-verifies whole windows of commits in one device call before
+    applying, so re-verifying per block would double the work.
+    `hasher` routes the data_hash recomputation through a TreeHasher
+    (device Merkle for big blocks)."""
+    block.validate_basic(hasher)
+    if block.header.chain_id != state.chain_id:
+        raise ValidationError(
+            f"wrong chain_id: got {block.header.chain_id}, want {state.chain_id}"
+        )
+    _validate_block_evidence(state, block, verifier)
+    if block.header.height != state.last_block_height + 1:
+        raise ValidationError(
+            f"wrong height: got {block.header.height}, want {state.last_block_height + 1}"
+        )
+    if block.header.last_block_id != state.last_block_id:
+        raise ValidationError(
+            f"wrong last_block_id: got {block.header.last_block_id}, want {state.last_block_id}"
+        )
+    if block.header.app_hash != state.app_hash:
+        raise ValidationError(
+            f"wrong app_hash: got {block.header.app_hash.hex()}, want {state.app_hash.hex()}"
+        )
+    if block.header.validators_hash != state.validators.hash():
+        raise ValidationError("wrong validators_hash")
+    if block.header.height == 1:
+        if len(block.last_commit.precommits) != 0:
+            raise ValidationError("block at height 1 can't have LastCommit signatures")
+    else:
+        if len(block.last_commit.precommits) != state.last_validators.size():
+            raise ValidationError(
+                f"wrong LastCommit size: got {len(block.last_commit.precommits)}, "
+                f"want {state.last_validators.size()}"
+            )
+        if not commit_preverified:
+            state.last_validators.verify_commit(
+                state.chain_id,
+                state.last_block_id,
+                block.header.height - 1,
+                block.last_commit,
+                verifier=verifier,
+            )
+
+
+def _validate_block_evidence(state: State, block: Block, verifier) -> None:
+    """Evidence policy + proof checks (reference `VerifyEvidence
+    state/validation.go`): count under ConsensusParams.max_evidence,
+    every proof inside the max-age window, every signature genuine —
+    the whole list as ONE batched verify (2 lanes per proof)."""
+    from tendermint_tpu_torch.types.evidence import verify_evidence_batch
+
+    evidence = list(block.evidence)
+    if not evidence:
+        return
+    params = state.consensus_params.evidence
+    if len(evidence) > params.max_evidence:
+        raise ValidationError(
+            f"block carries {len(evidence)} evidence, max {params.max_evidence}"
+        )
+    for ev in evidence:
+        if block.header.height - ev.height > params.max_age:
+            raise ValidationError(
+                f"expired evidence: height {ev.height} at block "
+                f"{block.header.height} (max_age {params.max_age})"
+            )
+        if ev.height > block.header.height:
+            raise ValidationError("evidence from the future")
+    verify_evidence_batch(
+        state.chain_id,
+        evidence,
+        [state.validators, state.last_validators],
+        verifier=verifier,
+    )
+
+
+def exec_block_on_proxy_app(
+    app_conn: AppConnConsensus,
+    block: Block,
+    on_tx_result: Callable[[int, bytes, Result], None] | None = None,
+) -> ABCIResponses:
+    """BeginBlock, DeliverTx per tx, EndBlock (reference
+    `execBlockOnProxyApp state/execution.go:43-118`). Tx results stream
+    to `on_tx_result` (the event bus slot); committed evidence rides
+    BeginBlock so the app can hold equivocators accountable (reference
+    ByzantineValidators in RequestBeginBlock)."""
+    app_conn.begin_block_sync(
+        block.hash(), block.header, evidence=list(block.evidence)
+    )
+    responses = ABCIResponses(height=block.header.height)
+    for i, tx in enumerate(block.data.txs):
+        res = app_conn.deliver_tx_async(bytes(tx))
+        responses.deliver_tx.append(res)
+        if on_tx_result is not None:
+            on_tx_result(i, bytes(tx), res)
+    responses.end_block_changes = app_conn.end_block_sync(block.header.height)
+    return responses
+
+
+def apply_block(
+    state: State,
+    block: Block,
+    part_set_header: PartSetHeader,
+    app_conn: AppConnConsensus,
+    mempool: MempoolI | None = None,
+    verifier=None,
+    tx_indexer=None,
+    on_tx_result: Callable[[int, bytes, Result], None] | None = None,
+    commit_preverified: bool = False,
+    hasher=None,
+) -> State:
+    """Validate, execute, persist; returns the advanced state
+    (reference `ApplyBlock state/execution.go:216-249`). Mutates and
+    returns `state`; callers pass a copy when they need the original."""
+    validate_block(
+        state,
+        block,
+        verifier=verifier,
+        commit_preverified=commit_preverified,
+        hasher=hasher,
+    )
+
+    fail_point()  # before any execution effects
+    abci_responses = exec_block_on_proxy_app(app_conn, block, on_tx_result)
+
+    fail_point()  # after app execution, before saving responses
+    state.save_abci_responses(abci_responses)
+
+    fail_point()  # responses saved, before state advance + app commit
+    if tx_indexer is not None:
+        tx_indexer.add_batch(block, abci_responses)
+    state.set_block_and_validators(block.header, part_set_header, abci_responses)
+    if abci_responses.end_block_changes and hasattr(verifier, "prebuild"):
+        # valset rotation decided: warm the NEXT set's verify tables in
+        # the background so the first commit signed by the new set
+        # doesn't stall on a table build (SURVEY §7 hard part 4)
+        verifier.prebuild([v.pub_key.data for v in state.validators])
+
+    # app Commit under the mempool lock, then recheck leftover txs
+    # (reference CommitStateUpdateMempool `state/execution.go:254-277`)
+    mempool = mempool if mempool is not None else NopMempool()
+    mempool.lock()
+    try:
+        res = app_conn.commit_sync()
+        if not res.is_ok:
+            raise BlockExecutionError(f"app commit failed: {res.log}")
+        state.app_hash = res.data
+        mempool.update(block.header.height, block.data.txs)
+    finally:
+        mempool.unlock()
+
+    fail_point()  # app committed, before state save
+    state.save()
+    return state
+
+
+def exec_commit_block(
+    app_conn: AppConnConsensus, block: Block, verifier=None
+) -> bytes:
+    """Execute + commit a block against the app WITHOUT touching state —
+    used by the handshake replay (reference `ExecCommitBlock
+    state/execution.go:297-314`). Returns the new app hash."""
+    exec_block_on_proxy_app(app_conn, block)
+    res = app_conn.commit_sync()
+    if not res.is_ok:
+        raise BlockExecutionError(f"app commit failed: {res.log}")
+    return res.data

@@ -1,0 +1,329 @@
+"""Persisted chain state (reference `state/state.go:38-68`).
+
+State is the consensus-critical snapshot between blocks: validators for
+the next height, last validators (who must have signed LastCommit), app
+hash, and consensus params. Persisted as canonical JSON in the state DB
+under fixed keys; historical validator sets are stored per height with
+change-height compression (`state/state.go:174-224`) so fast-sync and
+light clients can verify old commits.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+
+from tendermint_tpu_torch.abci.types import Result, Validator as ABCIValidator
+from tendermint_tpu_torch.crypto.keys import PubKey
+from tendermint_tpu_torch.db.kv import DB
+from tendermint_tpu_torch.types.block_id import BlockID
+from tendermint_tpu_torch.types.errors import ValidationError
+from tendermint_tpu_torch.types.genesis import GenesisDoc
+from tendermint_tpu_torch.types.params import ConsensusParams
+from tendermint_tpu_torch.types.part_set import PartSetHeader
+from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+_STATE_KEY = b"stateKey"
+
+
+def _valset_to_dict(vs: ValidatorSet) -> dict:
+    return {
+        "validators": [
+            {
+                "address": v.address.hex(),
+                "pub_key": v.pub_key.data.hex(),
+                "voting_power": v.voting_power,
+                "accum": v.accum,
+            }
+            for v in vs.validators
+        ]
+    }
+
+
+def _valset_from_dict(d: dict) -> ValidatorSet:
+    return ValidatorSet(
+        [
+            Validator(
+                address=bytes.fromhex(v["address"]),
+                pub_key=PubKey(bytes.fromhex(v["pub_key"])),
+                voting_power=v["voting_power"],
+                accum=v["accum"],
+            )
+            for v in d["validators"]
+        ]
+    )
+
+
+@dataclass
+class ABCIResponses:
+    """Results of executing a block against the app, saved *before* the
+    app commits so a crash between app-commit and state-save can be
+    replayed against a mock app (reference `state/state.go:286-293`,
+    `consensus/replay.go:362-398`)."""
+
+    height: int
+    deliver_tx: list[Result] = field(default_factory=list)
+    end_block_changes: list[ABCIValidator] = field(default_factory=list)
+
+    def to_json(self) -> bytes:
+        return json.dumps(
+            {
+                "height": self.height,
+                "deliver_tx": [
+                    {"code": r.code, "data": r.data.hex(), "log": r.log}
+                    for r in self.deliver_tx
+                ],
+                "end_block_changes": [
+                    {"pub_key": v.pub_key.hex(), "power": v.power}
+                    for v in self.end_block_changes
+                ],
+            },
+            sort_keys=True,
+        ).encode()
+
+    @classmethod
+    def from_json(cls, raw: bytes) -> "ABCIResponses":
+        d = json.loads(raw.decode())
+        return cls(
+            height=d["height"],
+            deliver_tx=[
+                Result(r["code"], bytes.fromhex(r["data"]), r["log"])
+                for r in d["deliver_tx"]
+            ],
+            end_block_changes=[
+                ABCIValidator(bytes.fromhex(v["pub_key"]), v["power"])
+                for v in d["end_block_changes"]
+            ],
+        )
+
+
+@dataclass
+class State:
+    chain_id: str
+    consensus_params: ConsensusParams
+    last_block_height: int
+    last_block_id: BlockID
+    last_block_time: int  # ns since epoch (matches Header.time)
+    validators: ValidatorSet
+    last_validators: ValidatorSet
+    last_height_validators_changed: int
+    app_hash: bytes
+    db: DB | None = None
+
+    # -- persistence ---------------------------------------------------------
+
+    def to_json(self) -> bytes:
+        return json.dumps(
+            {
+                "chain_id": self.chain_id,
+                "consensus_params": self.consensus_params.to_dict(),
+                "last_block_height": self.last_block_height,
+                "last_block_id": {
+                    "hash": self.last_block_id.hash.hex(),
+                    "parts": {
+                        "total": self.last_block_id.parts_header.total,
+                        "hash": self.last_block_id.parts_header.hash.hex(),
+                    },
+                },
+                "last_block_time": self.last_block_time,
+                "validators": _valset_to_dict(self.validators),
+                "last_validators": _valset_to_dict(self.last_validators),
+                "last_height_validators_changed": self.last_height_validators_changed,
+                "app_hash": self.app_hash.hex(),
+            },
+            sort_keys=True,
+        ).encode()
+
+    @classmethod
+    def from_json(cls, raw: bytes, db: DB | None = None) -> "State":
+        d = json.loads(raw.decode())
+        bid = d["last_block_id"]
+        return cls(
+            chain_id=d["chain_id"],
+            consensus_params=ConsensusParams.from_dict(d["consensus_params"]),
+            last_block_height=d["last_block_height"],
+            last_block_id=BlockID(
+                bytes.fromhex(bid["hash"]),
+                PartSetHeader(bid["parts"]["total"], bytes.fromhex(bid["parts"]["hash"])),
+            ),
+            last_block_time=d["last_block_time"],
+            validators=_valset_from_dict(d["validators"]),
+            last_validators=_valset_from_dict(d["last_validators"]),
+            last_height_validators_changed=d["last_height_validators_changed"],
+            app_hash=bytes.fromhex(d["app_hash"]),
+            db=db,
+        )
+
+    def save(self) -> None:
+        if self.db is None:
+            raise ValidationError("state has no db to save to")
+        self.save_validators_info()
+        self.db.set_sync(_STATE_KEY, self.to_json())
+
+    def copy(self) -> "State":
+        return State(
+            chain_id=self.chain_id,
+            consensus_params=self.consensus_params,
+            last_block_height=self.last_block_height,
+            last_block_id=self.last_block_id,
+            last_block_time=self.last_block_time,
+            validators=self.validators.copy(),
+            last_validators=self.last_validators.copy(),
+            last_height_validators_changed=self.last_height_validators_changed,
+            app_hash=self.app_hash,
+            db=self.db,
+        )
+
+    def equals(self, other: "State") -> bool:
+        return self.to_json() == other.to_json()
+
+    # -- historical validator sets ------------------------------------------
+
+    @staticmethod
+    def _validators_key(height: int) -> bytes:
+        return b"validatorsKey:%d" % height
+
+    def save_validators_info(self) -> None:
+        """Store validators-for-height(H+1) with change-height compression:
+        full set only when it changed, else a pointer to the last change
+        (reference `state/state.go:174-224`)."""
+        if self.db is None:
+            return
+        next_height = self.last_block_height + 1
+        changed = self.last_height_validators_changed
+        if next_height == changed:
+            doc = {"last_changed": changed, "validators": _valset_to_dict(self.validators)}
+        else:
+            doc = {"last_changed": changed}
+        self.db.set(self._validators_key(next_height), json.dumps(doc, sort_keys=True).encode())
+
+    def save_validators_full(self) -> None:
+        """Write the FULL current validator set at its change height.
+
+        Snapshot restore seeds a fresh state DB with this so the
+        change-height pointers `save_validators_info` writes afterwards
+        resolve (`load_validators` would otherwise chase a pointer into
+        pre-snapshot history this node never stored)."""
+        if self.db is None:
+            return
+        doc = {
+            "last_changed": self.last_height_validators_changed,
+            "validators": _valset_to_dict(self.validators),
+        }
+        self.db.set(
+            self._validators_key(self.last_height_validators_changed),
+            json.dumps(doc, sort_keys=True).encode(),
+        )
+
+    def load_validators(self, height: int) -> ValidatorSet:
+        """Validator set that was responsible for signing at `height`."""
+        if self.db is None:
+            raise ValidationError("state has no db")
+        raw = self.db.get(self._validators_key(height))
+        if raw is None:
+            raise ValidationError(f"no validators saved for height {height}")
+        doc = json.loads(raw.decode())
+        if "validators" not in doc:
+            raw = self.db.get(self._validators_key(doc["last_changed"]))
+            if raw is None:
+                raise ValidationError(
+                    f"dangling validators pointer {height}->{doc['last_changed']}"
+                )
+            doc = json.loads(raw.decode())
+        return _valset_from_dict(doc["validators"])
+
+    # -- ABCI responses (crash recovery) -------------------------------------
+
+    @staticmethod
+    def _abci_responses_key(height: int) -> bytes:
+        return b"abciResponsesKey:%d" % height
+
+    def save_abci_responses(self, responses: ABCIResponses) -> None:
+        if self.db is None:
+            return
+        self.db.set_sync(self._abci_responses_key(responses.height), responses.to_json())
+
+    def load_abci_responses(self, height: int) -> ABCIResponses | None:
+        if self.db is None:
+            return None
+        raw = self.db.get(self._abci_responses_key(height))
+        return ABCIResponses.from_json(raw) if raw is not None else None
+
+    # -- transition ----------------------------------------------------------
+
+    def set_block_and_validators(
+        self,
+        header,
+        block_parts_header: PartSetHeader,
+        abci_responses: ABCIResponses,
+    ) -> None:
+        """Advance past a block at height H: rotate validator sets and
+        apply EndBlock diffs to the set for height H+1 (reference
+        `state/state.go:238-265`)."""
+        prev_vals = self.validators.copy()
+        next_vals = self.validators.copy()
+        if abci_responses.end_block_changes:
+            next_vals.apply_changes(
+                [
+                    Validator(
+                        address=PubKey(v.pub_key).address,
+                        pub_key=PubKey(v.pub_key),
+                        voting_power=v.power,
+                    )
+                    for v in abci_responses.end_block_changes
+                ]
+            )
+            self.last_height_validators_changed = header.height + 1
+        next_vals.increment_accum(1)
+        self.last_block_height = header.height
+        self.last_block_id = BlockID(header.hash(), block_parts_header)
+        self.last_block_time = header.time
+        self.validators = next_vals
+        self.last_validators = prev_vals
+
+    def get_validators(self) -> tuple[ValidatorSet, ValidatorSet]:
+        return self.last_validators, self.validators
+
+    def speculate_next(self, header, block_parts_header: PartSetHeader) -> "State":
+        """A PROVISIONAL copy advanced past the block at `header` as if
+        EndBlock changed nothing — everything `set_block_and_validators`
+        derives without the ABCI responses (heights, block id, valset
+        rotation + accum). `app_hash` stays the PRE-apply value and the
+        copy is never persisted: the pipelined finalize enters H+1's
+        NewHeight on this while the real apply is in flight, and the
+        join barrier swaps in the applied state (rebuilding the
+        valset-derived round state in the rare EndBlock-changes case)
+        before anything reads applied fields."""
+        nxt = self.copy()
+        prev_vals = nxt.validators.copy()
+        nxt.validators.increment_accum(1)
+        nxt.last_validators = prev_vals
+        nxt.last_block_height = header.height
+        nxt.last_block_id = BlockID(header.hash(), block_parts_header)
+        nxt.last_block_time = header.time
+        return nxt
+
+
+def load_state(db: DB) -> State | None:
+    raw = db.get(_STATE_KEY)
+    return State.from_json(raw, db=db) if raw is not None else None
+
+
+def make_genesis_state(db: DB | None, genesis: GenesisDoc) -> State:
+    """State at height 0 from a genesis document
+    (reference `state/state.go:351-387`)."""
+    genesis.validate_and_complete()
+    valset = genesis.validator_set()
+    last_vals = ValidatorSet([])
+    return State(
+        chain_id=genesis.chain_id,
+        consensus_params=genesis.consensus_params,
+        last_block_height=0,
+        last_block_id=BlockID.zero(),
+        last_block_time=genesis.genesis_time,
+        validators=valset,
+        last_validators=last_vals,
+        last_height_validators_changed=1,
+        app_hash=genesis.app_hash,
+        db=db,
+    )

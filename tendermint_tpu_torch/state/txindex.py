@@ -1,0 +1,85 @@
+"""Transaction indexing (reference `state/txindex/`).
+
+`KVTxIndexer` stores each tx's execution result keyed by tx hash in a
+KV DB, batched per block (reference `kv/kv.go:17-60`, batch built in
+`state/execution.go:279-293`); `NullTxIndexer` is the disabled default.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+
+from tendermint_tpu_torch.abci.types import Result
+from tendermint_tpu_torch.db.kv import DB
+from tendermint_tpu_torch.types.tx import tx_hash
+
+
+@dataclass
+class TxResult:
+    """Where and how a tx executed (reference `types.TxResult`)."""
+
+    height: int
+    index: int
+    tx: bytes
+    result: Result
+
+    def to_json(self) -> bytes:
+        return json.dumps(
+            {
+                "height": self.height,
+                "index": self.index,
+                "tx": self.tx.hex(),
+                "code": self.result.code,
+                "data": self.result.data.hex(),
+                "log": self.result.log,
+            },
+            sort_keys=True,
+        ).encode()
+
+    @classmethod
+    def from_json(cls, raw: bytes) -> "TxResult":
+        d = json.loads(raw.decode())
+        return cls(
+            height=d["height"],
+            index=d["index"],
+            tx=bytes.fromhex(d["tx"]),
+            result=Result(d["code"], bytes.fromhex(d["data"]), d["log"]),
+        )
+
+
+class TxIndexer:
+    def add_batch(self, block, abci_responses) -> None:
+        raise NotImplementedError
+
+    def get(self, tx_hash: bytes) -> TxResult | None:
+        raise NotImplementedError
+
+
+class NullTxIndexer(TxIndexer):
+    """Indexing disabled (reference `null.TxIndex`)."""
+
+    def add_batch(self, block, abci_responses) -> None:
+        pass
+
+    def get(self, tx_hash: bytes) -> TxResult | None:
+        return None
+
+
+class KVTxIndexer(TxIndexer):
+    def __init__(self, db: DB) -> None:
+        self._db = db
+
+    def add_batch(self, block, abci_responses) -> None:
+        for i, tx in enumerate(block.data.txs):
+            tr = TxResult(
+                height=block.header.height,
+                index=i,
+                tx=bytes(tx),
+                result=abci_responses.deliver_tx[i],
+            )
+            self._db.set(b"tx:" + tx_hash(bytes(tx)), tr.to_json())
+
+    def get(self, tx_hash: bytes) -> TxResult | None:
+        raw = self._db.get(b"tx:" + tx_hash)
+        return TxResult.from_json(raw) if raw is not None else None

@@ -5,9 +5,9 @@ registered at import into the port's own `REGISTRY`.
 Label values are low-cardinality by construction: `backend` in {host,
 device, tables, mesh}, `kind` in {verify, hash, tables}, `queue` and
 `consumer` the pipeline owners, `direction` in {shrink, restore},
-`result` in {hit, miss}, `state` in {useful, padded, cached}, `stage`
-the dispatch-handle stages, `lock` the ranked-lock names of
-`utils/lockrank.py`.
+`result` in {hit, miss}, `state` in {useful, padded, cached}, `mode` in
+{sequential, bisect}, `stage` the dispatch-handle stages, `lock` the
+ranked-lock names of `utils/lockrank.py`.
 """
 
 from __future__ import annotations
@@ -243,6 +243,21 @@ LOCK_HOLD_SECONDS = Histogram(
     buckets=LATENCY_BUCKETS,
 )
 
+# -- light client (certifiers/certifier.py) ------------------------------------
+#
+# `mode` splits the header-by-header walk (sequential, the
+# InquiringCertifier) from the skipping walk (bisect, which the port
+# does not carry yet); both series exist from import.
+
+LIGHTCLIENT_WALK_SECONDS = Histogram(
+    "tendermint_lightclient_walk_seconds",
+    "Wall time one certifier walk took to move trust to the target "
+    "height (sequential = header-by-header InquiringCertifier, "
+    "bisect = batched skipping verification)",
+    labelnames=("mode",),
+    buckets=LATENCY_BUCKETS,
+)
+
 # Pre-seed the known label values so reads see zero-valued series before
 # any instance or event.
 for _kind in ("verify", "hash", "tables"):
@@ -259,3 +274,5 @@ for _kind in ("verify", "hash", "tables", "leaf_hashes"):
         LAUNCH_ROWS.labels(kind=_kind, state=_state).inc(0)
 for _stage in ("queue_wait", "host_prep", "in_flight", "finalize"):
     LAUNCH_STAGE_SECONDS.labels(stage=_stage)
+for _mode in ("sequential", "bisect"):
+    LIGHTCLIENT_WALK_SECONDS.labels(mode=_mode)

@@ -193,3 +193,91 @@ def make_commit(val_set, privs, height, round_, block_id, verifier, chain_id=TES
         votes.add_vote(signed_vote(priv, i, height, round_, VOTE_TYPE_PRECOMMIT, block_id, chain_id),
                        verifier=verifier)
     return votes.make_commit()
+
+
+# -- the chain's fixtures (the port's counterpart of tests/helpers.py's) ------
+
+
+def make_genesis(n_vals: int = 4, power: int = 10, chain_id: str = TEST_CHAIN_ID):
+    """GenesisDoc + priv validators in the set's order."""
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    vs, privs = make_validators(n_vals, power)
+    gen = GenesisDoc(
+        chain_id=chain_id,
+        genesis_time=1_700_000_000_000_000_000,
+        validators=[GenesisValidator(pub_key=v.pub_key, power=v.voting_power) for v in vs.validators],
+    )
+    return gen, privs
+
+
+class ChainSim:
+    """Drive a real State + app through heights with real commits: the
+    make-block -> sign-precommits -> apply_block loop of the port's
+    chain. `verifier` checks each precommit as the commit is made and is
+    passed on to `apply_block` with `hasher`; `verifier=None` is the
+    port's `default_verifier()`, the card's stack. `genesis` is a
+    (GenesisDoc, privs in the set's order) pair to start from in place of
+    `make_genesis(n_vals)`."""
+
+    def __init__(self, n_vals: int = 4, app=None, db=None, chain_id: str = TEST_CHAIN_ID, hasher=None,
+                 verifier=None, genesis=None):
+        from tendermint_tpu_torch.abci.apps import KVStoreApp
+        from tendermint_tpu_torch.abci.client import local_client_creator
+        from tendermint_tpu_torch.db.kv import MemDB
+        from tendermint_tpu_torch.state import make_genesis_state
+
+        self.chain_id = chain_id
+        self.hasher = hasher
+        self.verifier = verifier
+        self.db = db if db is not None else MemDB()
+        self.genesis, self.privs = genesis if genesis is not None else make_genesis(n_vals, chain_id=chain_id)
+        self.state = make_genesis_state(self.db, self.genesis)
+        self.state.save()  # node startup persists genesis state (validators@1)
+        self.app = app if app is not None else KVStoreApp()
+        self.conns = local_client_creator(self.app)()
+        self.blocks = []
+        self.commits = []
+
+    def _commit_for(self, block, part_set):
+        from tendermint_tpu_torch.types import BlockID
+
+        block_id = BlockID(block.hash(), part_set.header)
+        return make_commit(self.state.validators, self._privs_in_valset_order(), block.header.height, 0,
+                           block_id, self.verifier, self.chain_id)
+
+    def _privs_in_valset_order(self):
+        by_addr = {p.address: p for p in self.privs}
+        return [by_addr[v.address] for v in self.state.validators.validators]
+
+    def make_next_block(self, txs=None, evidence=None):
+        from tendermint_tpu_torch.types import Block, Commit, Txs
+
+        height = self.state.last_block_height + 1
+        last_commit = self.commits[-1] if self.commits else Commit.empty()
+        block = Block.make_block(
+            height=height,
+            chain_id=self.chain_id,
+            txs=Txs(txs or []),
+            last_commit=last_commit,
+            last_block_id=self.state.last_block_id,
+            time=self.genesis.genesis_time + height * 1_000_000_000,
+            validators_hash=self.state.validators.hash(),
+            app_hash=self.state.app_hash,
+            hasher=self.hasher,
+            evidence=evidence,
+        )
+        return block, block.make_part_set(hasher=self.hasher)
+
+    def advance(self, txs=None, **apply_kwargs):
+        """Build, commit-sign, and apply one block; returns the block."""
+        from tendermint_tpu_torch.state import apply_block
+
+        block, part_set = self.make_next_block(txs)
+        commit = self._commit_for(block, part_set)
+        apply_kwargs.setdefault("hasher", self.hasher)
+        apply_kwargs.setdefault("verifier", self.verifier)
+        apply_block(self.state, block, part_set.header, self.conns.consensus, **apply_kwargs)
+        self.blocks.append(block)
+        self.commits.append(commit)
+        return block

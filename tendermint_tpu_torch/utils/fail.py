@@ -1,10 +1,18 @@
-"""Device fault injection (counterpart of the device-fault half of
+"""Crash-point and device fault injection (counterpart of
 `tendermint_tpu/utils/fail.py`).
 
-Forces device backend calls (batch verify, device Merkle trees, comb
-table construction) to raise deterministically, so the resilient
-dispatch layer (`services/resilient.py`) can be driven through its
-degrade -> probe -> recover cycle. Selected by the
+`fail_point()` calls are numbered in program order per process; when the
+`FAIL_TEST_INDEX` env var equals the current index the process exits
+immediately with status 1 (or raises `SimulatedCrash` when
+`FAIL_TEST_SOFT` is set). Block execution (`state/execution.py`)
+brackets every persistence step with one, so a test can kill a process
+at each step and check what a restart finds. Both packages read the same
+env var, but each counts its own fail points.
+
+The device half forces device backend calls (batch verify, device Merkle
+trees, comb table construction) to raise deterministically, so the
+resilient dispatch layer (`services/resilient.py`) can be driven through
+its degrade -> probe -> recover cycle. Selected by the
 TENDERMINT_TPU_DEVICE_FAIL env var — "verify", "hash", "tables" or
 "all", with an optional per-kind budget: "verify:3" fails the first 3
 verify dispatches then clears; comma-separate for several kinds — or at
@@ -17,6 +25,40 @@ module does not arm the port, though both read the same env var.
 from __future__ import annotations
 
 import os
+import sys
+
+_counter = 0
+
+
+class SimulatedCrash(BaseException):
+    """In-process stand-in for the os._exit crash: derives from
+    BaseException so a receive loop's fault isolation (`except
+    Exception`) cannot swallow it. Raised instead of exiting when
+    FAIL_TEST_SOFT is set (an in-process harness kills one node, not the
+    whole process)."""
+
+
+def fail_point() -> None:
+    global _counter
+    target = os.environ.get("FAIL_TEST_INDEX")
+    if target is None:
+        return
+    if _counter == int(target):
+        if os.environ.get("FAIL_TEST_SOFT"):
+            _counter += 1  # don't re-trip on the next call after restart
+            raise SimulatedCrash(f"FAIL_TEST_INDEX={target}")
+        sys.stderr.write(f"FAIL_TEST_INDEX={target}: exiting at fail point\n")
+        sys.stderr.flush()
+        os._exit(1)
+    _counter += 1
+
+
+def reset_for_testing() -> None:
+    global _counter
+    _counter = 0
+
+
+# -- device fault injection ---------------------------------------------------
 
 
 class InjectedDeviceFault(RuntimeError):

@@ -634,3 +634,87 @@ def test_port_types_verify_on_the_card(dev, monkeypatch):
         stack.close()
     assert mid[0] - before[0] == 2 and mid[1] == before[1] and mid[2] - before[2] == 2
     assert after[0] == mid[0] and after[1] - mid[1] == 1 and after[2] - mid[2] == 1
+
+
+def test_port_chain_applies_and_certifies_on_the_card(dev, monkeypatch):
+    """The port's `ChainSim` on the card's stack at minimum device batch 0:
+    a 150-validator chain whose height 2 replaces 15 validators; every
+    `apply_block` from height 2 on verifies its last commit with one
+    entries-chain launch and one finish, the new set's tables come from
+    the prebuild, a forged precommit raises before the app runs,
+    `certify_batch` of the new set's 8 commits takes the fused kernel and
+    `DynamicCertifier.update` across the change the ladder."""
+    from tendermint_tpu_torch.abci.apps import PersistentKVStoreApp
+    from tendermint_tpu_torch.certifiers import DynamicCertifier, FullCommit, StaticCertifier
+    from tendermint_tpu_torch.crypto import PrivKey
+    from tendermint_tpu_torch.db.kv import MemDB
+    from tendermint_tpu_torch.services import verifier as V
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.state import apply_block
+    from tendermint_tpu_torch.testing import ChainSim
+    from tendermint_tpu_torch.types import Commit, PrivValidator, ValidationError
+
+    monkeypatch.setattr(V, "_DEFAULTS", {})
+    stack = V.default_verifier(dev)
+    stack.inner.primary._min_batch = 0
+    rng = np.random.default_rng(67)
+
+    def counts():
+        return (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches,
+                TT.finish_encode_compare.launches)
+
+    def delta(before):
+        return tuple(b - a for a, b in zip(before, counts()))
+
+    # the commits are made and checked on the host; the chain applies on the card
+    sim = ChainSim(n_vals=150, app=PersistentKVStoreApp(MemDB()), verifier=V.HostBatchVerifier())
+    light = CoalescingVerifier(stack.inner)  # the light client's own signature cache
+    try:
+        sim.advance(txs=[b"a=1"], verifier=stack)
+        new = [PrivValidator(PrivKey(rng.bytes(32))) for _ in range(15)]
+        leaving = sim.state.validators.validators[:15]
+        txs = [b"val:%s/0" % v.pub_key.data.hex().encode() for v in leaving]
+        txs += [b"val:%s/10" % p.pub_key.data.hex().encode() for p in new]
+        sim.privs += new
+        before = counts()
+        sim.advance(txs=txs, verifier=stack)
+        assert delta(before) == (1, 0, 0, 1)
+        backend = stack.inner.primary
+        for t in list(backend._prebuilds.values()):
+            t.join(timeout=120)
+        key = backend._cache_key(tuple(v.pub_key.data for v in sim.state.validators))
+        assert key in backend._tables and sim.state.last_height_validators_changed == 3
+        for _ in range(9):  # heights 3..11: the new set signs from height 3 on
+            before = counts()
+            sim.advance(txs=[rng.bytes(40)], verifier=stack)
+            assert delta(before) == (1, 0, 0, 1)
+        # a forged precommit in the next block's last commit
+        saved = sim.commits[-1]
+        pre = list(saved.precommits)
+        pre[7] = pre[7].with_signature(bytes([pre[7].signature[0] ^ 1]) + pre[7].signature[1:])
+        sim.commits[-1] = Commit(block_id=saved.block_id, precommits=pre)
+        block, ps = sim.make_next_block(txs=[b"z=9"])
+        sim.commits[-1] = saved
+        state_json, app_state = sim.state.to_json(), sim.app.snapshot_state()
+        fresh = CoalescingVerifier(stack.inner)
+        try:
+            with pytest.raises(ValidationError, match="invalid commit signature from validator 7$"):
+                apply_block(sim.state, block, ps.header, sim.conns.consensus, verifier=fresh)
+        finally:
+            fresh.coalescer.close()
+        assert sim.state.to_json() == state_json and sim.app.snapshot_state() == app_state
+        fcs = [FullCommit(sim.blocks[h - 1].header, sim.commits[h - 1], sim.state.load_validators(h))
+               for h in range(1, 12)]
+        before = counts()
+        StaticCertifier(sim.chain_id, fcs[3].validators, light).certify_batch(fcs[3:11])
+        assert delta(before) == (0, 1, 0, 1)
+        cert = DynamicCertifier(sim.chain_id, fcs[0].validators, height=1, verifier=light)
+        cert.certify(fcs[1])
+        before = counts()
+        cert.update(fcs[2])
+        assert delta(before) == (0, 0, 1, 1) and cert.last_height == 3
+        snap = stack.inner.snapshot()
+        assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
+    finally:
+        light.coalescer.close()
+        stack.close()

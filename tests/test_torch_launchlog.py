@@ -46,16 +46,21 @@ TIME_FIELDS = {"t", "queue_wait_s", "host_prep_s", "in_flight_s", "finalize_s", 
 @pytest.fixture(autouse=True)
 def _ledger_reset():
     """Every test leaves both packages' process-wide ledgers empty and
-    their thread-ambient assembly state clean."""
+    their thread-ambient assembly state clean, and runs with no node id
+    on either ledger (a node booted by an earlier test of the process
+    tags every later record with its id)."""
+    node_ids = [mod.LAUNCHLOG.node_id for mod in (launchlog, J_launchlog)]
     for mod in (launchlog, J_launchlog):
         mod.LAUNCHLOG.clear()
+        mod.LAUNCHLOG.node_id = ""
         mod._tls.rec = None
         mod._tls.tags = None
     fail.clear_device_faults()
     J_fail.clear_device_faults()
     yield
-    for mod in (launchlog, J_launchlog):
+    for mod, node_id in zip((launchlog, J_launchlog), node_ids):
         mod.LAUNCHLOG.clear()
+        mod.LAUNCHLOG.node_id = node_id
         mod._tls.rec = None
         mod._tls.tags = None
     fail.clear_device_faults()
