@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's ed25519 verify path and Merkle hash
 plane once on the card.
 
-    python3 chip_smoke.py            # one CUDA card, about 2-5 minutes
+    python3 chip_smoke.py            # one CUDA card, about 5-7 minutes
 
 Phases (inputs made from --seed with numpy, signed with the port's
 pure-Python RFC 8032 module, messages as long as a canonical vote's sign
@@ -91,7 +91,34 @@ bytes):
    chain of phase 3's 1,000 validators in one call (5 times, commits/s),
    and a batch with one forged commit must raise naming its entry and
    height. Each step's launches are checked and stand on the `state` and
-   `certifiers` lines; then the stack is closed;
+   `certifiers` lines;
+10. sync, run after phase 9 on the same stack: a fresh node catches up
+   over the port's own network. A chain of phase 3's 1,000 keys (equal
+   power, `KVStoreApp`, 256 txs of 250 bytes a block) is built to 49
+   heights on the stack (each commit verified on the card as the chain
+   applies it) and served from a `BlockStore` by a `Switch` with
+   `BlockchainReactor(fast_sync=False)`; a node with the genesis state,
+   an empty store and `BlockchainReactor(fast_sync=True)` at the default
+   pipeline depth dials it over localhost TCP and syncs to height 48:
+   run a through a SecretConnection (node keys from the seed, the port's
+   pure-Python X25519, HKDF and ChaCha20-Poly1305) with `verifier=None`,
+   which is `default_verifier()`, and the app in process; run b over
+   plain TCP with the app behind the port's ABCI socket, on a fresh
+   coalescer over the stack. Each run must end with every block's hash,
+   the state JSON and the app hash equal to the chain's, and launch one
+   finish a window, the fused chain for a window of 8 commits or more
+   and the entries chain below (over the network the first window is
+   often short). It times the dial (the handshake), dial to caught up
+   (blocks/s), the windows, the fastsync queue's overlap and the bytes
+   received, and the links alone at a block's size (SecretConnection
+   and plain TCP, both ends in this process, and the cipher on one
+   thread, MB/s). Then a fork of the chain with one precommit of height
+   20's commit forged inside block 21 is synced from a reactor's pool:
+   window 1 applies, window 2 launches, its verdict is false on the card
+   with the forged validator's message, and it drains unapplied. Its
+   `sync_link`, `sync_run` and `sync` lines carry the numbers and the
+   launches; then the stack is closed. `--sync-only` runs phase 0 and
+   this phase alone;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -1953,12 +1980,14 @@ STATE_CHANGE = 10  # height 2 swaps 1 in STATE_CHANGE validators (10% of the pow
 REPLAY_HEIGHTS = 17  # 16 FullCommits after the first height, one certify_batch
 
 
-def smoke_chain(inp, keys, app, verifier, hasher, chain_id):
+def smoke_chain(inp, keys, app, verifier, hasher, chain_id, signed=None):
     """`tendermint_tpu_torch.testing.ChainSim` over the smoke's keys: the
     genesis set is `keys` of `inp` at power TYPES_POWER, and each commit's
     precommits are signed directly with the validators' seeds (`seeds`,
     by address), with no check of each vote as it is added: the chain's
-    own verify of the commit is what the phase measures."""
+    own verify of the commit is what the phase measures. Chains given one
+    `signed` dict share their commits by block id (signing is
+    deterministic, so a block two chains both made is signed once)."""
     from tendermint_tpu_torch.crypto import PubKey
     from tendermint_tpu_torch.db.kv import MemDB
     from tendermint_tpu_torch.testing import ChainSim
@@ -1969,12 +1998,17 @@ def smoke_chain(inp, keys, app, verifier, hasher, chain_id):
     class SmokeChain(ChainSim):
         def _commit_for(self, block, part_set):
             bid = BlockID(block.hash(), part_set.header)
+            if signed is not None and bid in signed:
+                return signed[bid]
             h = block.header.height
             pre = []
             for idx, val in enumerate(self.state.validators.validators):
                 v = Vote(val.address, idx, h, 0, TYPES_TIME_NS + idx, VOTE_TYPE_PRECOMMIT, bid)
                 pre.append(v.with_signature(inp.ref.sign(self.seeds[val.address], v.sign_bytes(self.chain_id))))
-            return Commit(block_id=bid, precommits=pre)
+            commit = Commit(block_id=bid, precommits=pre)
+            if signed is not None:
+                signed[bid] = commit
+            return commit
 
     gen = GenesisDoc(chain_id=chain_id, genesis_time=TYPES_TIME_NS,
                      validators=[GenesisValidator(pub_key=PubKey(inp.pubs[k]), power=TYPES_POWER) for k in keys])
@@ -2363,6 +2397,304 @@ def state_forged(chain, block, ps, fresh, splits, expect) -> dict:
 
 
 # -- phase 7: the mesh ---------------------------------------------------------
+
+SYNC_CHAIN = "chip-smoke-sync"
+SYNC_HEIGHTS = 49  # a syncing node applies 48: three windows of VERIFY_WINDOW
+SYNC_TXS = 256  # a block's txs, TX_BYTES each (tm-bench's default size)
+SYNC_FORGED_HEIGHTS = 33  # two windows of 16
+SYNC_FORGED_AT = 20  # the height whose commit carries the forged precommit
+SYNC_FORGED_LANE = 137
+SYNC_TIMEOUT_S = 300.0  # dial to caught up
+NODE_LINK_CAP = 512_000  # bytes/s, the node's send_rate / recv_rate default
+LINK_FRAMES = 24  # frames of a block's size timed over each link
+LINK_SEED_KEYS = (b"\x5a" * 32, b"\xa5" * 32)
+
+
+def sync_txs(rng, height: int) -> list[bytes]:
+    """SYNC_TXS key=value txs of TX_BYTES bytes, each with its own key."""
+    body = rng.integers(0, 256, size=(SYNC_TXS, TX_BYTES - 11), dtype=np.uint8)
+    return [b"s%02d-%06d=" % (height, i) + bytes(row) for i, row in enumerate(body)]
+
+
+def link_rates(frame_bytes: int, frames: int, rng) -> dict:
+    """MB/s of `frames` frames of `frame_bytes` from one end of a
+    localhost TCP link to the other, read as they arrive: over the plain
+    `TcpEndpoint` and through a `SecretEndpoint` (the port's pure-Python
+    X25519, HKDF and ChaCha20-Poly1305) on each end, both ends in this
+    process under one interpreter lock; the secret handshake's seconds;
+    and the cipher alone on one thread, sealing and opening the frames."""
+    import socket
+    import threading
+
+    from tendermint_tpu_torch.crypto import PrivKey
+    from tendermint_tpu_torch.crypto.chacha20poly1305 import ChaCha20Poly1305
+    from tendermint_tpu_torch.p2p.secret import SecretEndpoint
+    from tendermint_tpu_torch.p2p.tcp import TcpEndpoint
+
+    payloads = [rng.bytes(frame_bytes) for _ in range(frames)]
+    out: dict = {"frame_bytes": frame_bytes, "frames": frames}
+    aead = ChaCha20Poly1305(rng.bytes(32))
+    nonces = [i.to_bytes(12, "big") for i in range(frames)]
+    t0 = time.perf_counter()
+    sealed = [aead.encrypt(n, p, None) for n, p in zip(nonces, payloads)]
+    out["seal_mb_s"] = frames * frame_bytes / (time.perf_counter() - t0) / 1e6
+    t0 = time.perf_counter()
+    opened = [aead.decrypt(n, c, None) for n, c in zip(nonces, sealed)]
+    out["open_mb_s"] = frames * frame_bytes / (time.perf_counter() - t0) / 1e6
+    if opened != payloads:
+        raise AssertionError("sync link: the cipher did not open what it sealed")
+    for name in ("plain", "secret"):
+        srv = socket.create_server(("127.0.0.1", 0))
+        got: dict = {}
+
+        def accept():
+            sock, _ = srv.accept()
+            ep = TcpEndpoint(sock)
+            got["ep"] = SecretEndpoint(ep, PrivKey(LINK_SEED_KEYS[1])) if name == "secret" else ep
+
+        t = threading.Thread(target=accept, daemon=True)
+        t.start()
+        t0 = time.perf_counter()
+        cli = TcpEndpoint(socket.create_connection(srv.getsockname()))
+        if name == "secret":
+            cli = SecretEndpoint(cli, PrivKey(LINK_SEED_KEYS[0]))
+        t.join(timeout=30)
+        if name == "secret":
+            out["handshake_s"] = time.perf_counter() - t0
+        rx = got["ep"]
+        sender = threading.Thread(target=lambda: [cli.send(p, 60.0) for p in payloads], daemon=True)
+        t0 = time.perf_counter()
+        sender.start()
+        for p in payloads:
+            if rx.recv(timeout=60.0) != p:
+                raise AssertionError(f"sync link {name}: a frame arrived changed")
+        elapsed = time.perf_counter() - t0
+        sender.join(timeout=30)
+        out[f"{name}_mb_s"] = frames * frame_bytes / elapsed / 1e6
+        cli.close()
+        rx.close()
+        srv.close()
+    return out
+
+
+class SyncWindows:
+    """Each window a fast-sync reactor submits (its commits, from
+    `_prep_window`), each window's verdict at its join (None, or the
+    `ValidationError`'s message) and the seconds of its join and applies,
+    and each redo height, by wrappers put on the reactor instance."""
+
+    def __init__(self, reactor):
+        self.sizes, self.verdicts, self.redone, self.join_s = [], [], [], []
+        prep, join, redo = reactor._prep_window, reactor._join_and_apply, reactor._redo
+
+        def prep_window(cursor):
+            entry = prep(cursor)
+            if isinstance(entry, dict):
+                self.sizes.append(entry["apply_n"])
+            return entry
+
+        def join_and_apply(entry):
+            t0 = time.perf_counter()
+            self.verdicts.append((entry["start_height"], types_outcome(entry["handle"].result)))
+            ok = join(entry)
+            self.join_s.append(time.perf_counter() - t0)
+            return ok
+
+        def redo_at(height):
+            self.redone.append(height)
+            return redo(height)
+
+        reactor._prep_window, reactor._join_and_apply, reactor._redo = prep_window, join_and_apply, redo_at
+
+    def expect_launches(self, c: dict, what: str) -> None:
+        """One finish a window, the fused chain for a window of
+        FUSED_MIN_STACK commits or more, the entries chain below it."""
+        from tendermint_tpu_torch.ops.ed25519_tables import FUSED_MIN_STACK
+
+        fused = sum(1 for k in self.sizes if k >= FUSED_MIN_STACK)
+        want = {"madd_chain_fused": fused, "madd_chain_entries": len(self.sizes) - fused,
+                "finish_encode_compare": len(self.sizes), "ladder": 0}
+        got = {name: c[name] for name in want}
+        if got != want:
+            raise AssertionError(f"sync {what}: launches {got} for windows of {self.sizes}, expected {want}")
+
+
+def run_sync(stack, inp, sync, ns: int) -> dict:
+    """Phase 10: a fresh node catches up over the port's own network onto
+    the card. A chain of phase 3's `ns` keys (equal power, `KVStoreApp`,
+    SYNC_TXS txs of TX_BYTES a block) is built on the card's stack to
+    SYNC_HEIGHTS and saved into a `BlockStore`, which a `Switch` with
+    `BlockchainReactor(fast_sync=False)` serves. A fresh node (the genesis
+    state, an empty store, `KVStoreApp`, `BlockchainReactor(fast_sync=True)`
+    at the default pipeline depth) dials it over localhost TCP: run a
+    through a SecretConnection with node keys made from the seed, on
+    `default_verifier()`, the app in process; run b over plain TCP with
+    the app behind the port's ABCI socket, on a fresh coalescer over the
+    same stack. Each run must end at the store height SYNC_HEIGHTS - 1
+    with every block's hash, the state and the app hash equal to the
+    chain's, and launch one finish a window. The links alone are timed
+    (`link_rates`); then a chain with one forged precommit in height
+    SYNC_FORGED_AT's commit is synced by a reactor with the chain in its
+    pool: window 1 applies, window 2 launches, its verdict is false and
+    it drains unapplied."""
+    from tendermint_tpu_torch.abci.apps import KVStoreApp
+    from tendermint_tpu_torch.abci.client import local_client_creator
+    from tendermint_tpu_torch.abci.socket import ABCISocketServer, socket_client_creator
+    from tendermint_tpu_torch.crypto import PrivKey
+    from tendermint_tpu_torch.p2p import tcp
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.testing import (
+        SyncingNode, chain_store, forge_newest_precommit, preloaded_reactor, serving_switch,
+    )
+
+    hasher = default_hasher()
+    health = StackHealth(stack.inner, hasher)
+    backend = stack.inner.primary
+    rng = np.random.default_rng(inp.seed + 10)
+    rep: dict = {"validators": ns, "heights": SYNC_HEIGHTS, "txs": SYNC_TXS, "tx_bytes": TX_BYTES}
+    lane = SYNC_FORGED_LANE % ns
+
+    def expect(what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"sync {what}: {got!r}, expected {want!r}")
+
+    with TableCacheKept(backend):
+        # 1. the chain, and a fork of it with one forged precommit, each
+        # commit verified on the card as the chain applies it
+        t0 = time.perf_counter()
+        chain_verifier = CoalescingVerifier(stack.inner)  # apart from the syncing nodes' caches
+        signed: dict = {}
+        try:
+            chain = smoke_chain(inp, range(ns), KVStoreApp(), chain_verifier, hasher, SYNC_CHAIN, signed)
+            forked = smoke_chain(inp, range(ns), KVStoreApp(), chain_verifier, hasher, SYNC_CHAIN, signed)
+            for h in range(1, SYNC_HEIGHTS + 1):
+                txs = sync_txs(rng, h)
+                chain.advance(txs=txs)
+                if h == SYNC_HEIGHTS - 1:
+                    want_state = chain.state.to_json()
+                if h <= SYNC_FORGED_HEIGHTS:
+                    forked.advance(txs=txs, commit_preverified=h == SYNC_FORGED_AT + 1)
+                    if h == SYNC_FORGED_AT:
+                        forge_newest_precommit(forked, lane)
+        finally:
+            chain_verifier.coalescer.close()
+        rep["chain_s"] = time.perf_counter() - t0
+        store = chain_store(chain)
+        block_bytes = [len(b.encode()) for b in chain.blocks]
+        rep["block_bytes_median"] = statistics.median(block_bytes)
+        health.check("sync chain")
+        # the Python one block costs on each side of the link, median of 5
+        from tendermint_tpu_torch.blockchain import reactor as bc
+
+        mid = SYNC_HEIGHTS // 2
+        wire = bc._enc(bc._MSG_BLOCK_RESPONSE, store.load_block(mid).encode())
+        steps = {
+            "load": lambda: store.load_block(mid),
+            "encode": lambda: chain.blocks[mid - 1].encode(),
+            "decode": lambda: bc.decode_message(wire),
+            "part_set": lambda: chain.blocks[mid - 1].make_part_set(hasher=hasher),
+        }
+        rep["block_ms"] = {k: statistics.median(timed(fn, sync) for _ in range(5)) * 1e3 for k, fn in steps.items()}
+
+        # 2. the links alone, at a block's size
+        rep["link"] = link_rates(int(rep["block_bytes_median"]), LINK_FRAMES, rng)
+        log({"phase": "sync_link", **rep["link"]})
+
+        # 3. runs a and b
+        def run_one(name: str, verifier, secret: bool, socket_app: bool) -> dict:
+            keys = [PrivKey(rng.bytes(32)) for _ in range(2)]
+            server = serving_switch(store, keys[0].pub_key.address.hex(), SYNC_CHAIN)
+            lis = tcp.TcpListener(server, "tcp://127.0.0.1:0", priv_key=keys[0] if secret else None)
+            abci = ABCISocketServer(KVStoreApp(), "tcp://127.0.0.1:0") if socket_app else None
+            creator = socket_client_creator(f"127.0.0.1:{abci.port}") if socket_app else local_client_creator(
+                KVStoreApp())
+            conns = creator()
+            node = SyncingNode(chain.genesis, keys[1].pub_key.address.hex(), conns.consensus, verifier,
+                               hasher=hasher)
+            windows = SyncWindows(node.reactor)
+            overlap0 = _hist("tendermint_dispatch_overlap_ratio", queue="fastsync")
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                peer = tcp.dial(node.switch, f"127.0.0.1:{lis.port}", priv_key=keys[1] if secret else None)
+                dial_s = time.perf_counter() - t0
+                if not node.caught_up.wait(timeout=SYNC_TIMEOUT_S):
+                    raise AssertionError(f"sync run {name}: not caught up in {SYNC_TIMEOUT_S} s, "
+                                         f"store at {node.store.height}")
+                sync()
+                c = counts()
+                caught_s = node.caught_up_at - t0
+                recv_bytes, sent_bytes = peer.recv_monitor.total, peer.send_monitor.total
+            finally:
+                node.stop()
+                lis.stop()
+                server.stop()
+                if abci is not None:
+                    for conn in (conns.consensus, conns.mempool, conns.query):
+                        conn.close()
+                    abci.stop()
+            applied = SYNC_HEIGHTS - 1
+            expect(f"run {name} store height", node.store.height, applied)
+            for h in range(1, applied + 1):
+                expect(f"run {name} block {h}", node.store.load_block(h).hash(), chain.blocks[h - 1].hash())
+            expect(f"run {name} state", node.state.to_json(), want_state)
+            expect(f"run {name} app hash", node.state.app_hash, chain.blocks[applied].header.app_hash)
+            expect(f"run {name} verdicts", [v for _, v in windows.verdicts], [None] * len(windows.sizes))
+            expect(f"run {name} redone", windows.redone, [])
+            windows.expect_launches(c, f"run {name}")
+            ov = _hist("tendermint_dispatch_overlap_ratio", queue="fastsync")
+            row = {
+                "link": "secret" if secret else "plain", "app": "socket" if socket_app else "in-process",
+                "pipeline_depth": node.reactor.pipeline_depth, "dial_s": dial_s, "caught_up_s": caught_s,
+                "blocks_per_s": applied / caught_s, "windows": len(windows.sizes), "window_sizes": windows.sizes,
+                "fastsync_overlap_mean": (ov[0] - overlap0[0]) / max(ov[1] - overlap0[1], 1),
+                "join_apply_ms_per_block": sum(windows.join_s) / applied * 1e3,
+                "recv_bytes": recv_bytes, "sent_bytes": sent_bytes,
+                "cap_blocks_per_s": NODE_LINK_CAP / (recv_bytes / applied), "launches": c,
+            }
+            health.check(f"sync run {name}")
+            return row
+
+        # verifier=None: the port's default_verifier(), this stack
+        from tendermint_tpu_torch.services.verifier import default_verifier
+
+        expect("default_verifier()", default_verifier() is stack, True)
+        rep["a"] = run_one("a", None, secret=True, socket_app=False)
+        log({"phase": "sync_run", "run": "a", **rep["a"]})
+        fresh = CoalescingVerifier(stack.inner)
+        try:
+            rep["b"] = run_one("b", fresh, secret=False, socket_app=True)
+        finally:
+            fresh.coalescer.close()
+        log({"phase": "sync_run", "run": "b", **rep["b"]})
+
+        # 4. the forged step: the fork in a reactor's pool, on a fresh cache
+        fresh = CoalescingVerifier(stack.inner)
+        try:
+            reactor, _state, fstore = preloaded_reactor(forked, local_client_creator(KVStoreApp())().consensus, fresh)
+            windows = SyncWindows(reactor)
+            reset_counts()
+            forged_s = timed(reactor._try_sync, sync)
+            c = counts()
+            reactor.on_stop()
+        finally:
+            fresh.coalescer.close()
+        bad = forked.state.validators.validators[lane]
+        expect("forged windows", windows.sizes, [16, 16])
+        expect("forged verdicts", windows.verdicts, [
+            (1, None), (17, f"invalid commit signature from validator {lane}"
+                           f" (batch entry {SYNC_FORGED_AT - 17}, height {SYNC_FORGED_AT})")])
+        expect("forged redo", windows.redone, [17])
+        expect("forged store height", fstore.height, 16)
+        expect("forged block 17", fstore.load_block(17), None)
+        windows.expect_launches(c, "forged step")
+        rep["forged"] = {"s": forged_s, "windows": windows.sizes, "verdicts": windows.verdicts,
+                         "validator": bad.address.hex(), "launches": c}
+        health.check("sync forged")
+    log({"phase": "sync", **{k: v for k, v in rep.items() if k not in ("a", "b")}})
+    return rep
+
 
 MESH_SHARDS = 4
 MESH_REPS = 3  # timed calls a step, median
@@ -2835,6 +3167,26 @@ def run_mesh_only(args) -> dict:
     return report
 
 
+def run_sync_only(args) -> dict:
+    """`--sync-only`: phase 0, then phase 10 alone on `default_verifier()`
+    and the keys a full run makes from the same seed."""
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+    from tendermint_tpu_torch.services.verifier import default_verifier
+
+    import torch
+
+    report: dict = {"args": vars(args), "env": environment()}
+    inp = Inputs(args.seed, args.sync_validators)
+    stack = default_verifier()
+    check_layers(stack)
+    try:
+        report["sync"] = run_sync(stack, inp, torch.cuda.synchronize, args.sync_validators)
+    finally:
+        stack.close()
+        default_dispatch_queue().close()
+    return report
+
+
 def run(args) -> dict:
     import torch
 
@@ -2992,6 +3344,9 @@ def run(args) -> dict:
 
     # -- phase 9: block execution and the light client on the port's code --
     report["state"], report["certifiers"] = run_state(stack, inp, sync, sizes=(n, ns, k), reps=args.reps)
+
+    # -- phase 10: a fresh node fast-syncs over the port's own network ------
+    report["sync"] = run_sync(stack, inp, sync, ns)
     stack.close()
     default_dispatch_queue().close()
 
@@ -3162,6 +3517,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5, help="timed kernel runs")
     ap.add_argument("--mesh-only", action="store_true",
                     help="phase 0 and the mesh phase alone (for a call on several cards)")
+    ap.add_argument("--sync-only", action="store_true", help="phase 0 and the sync phase alone")
     args = ap.parse_args()
 
     import torch
@@ -3176,7 +3532,12 @@ def main() -> int:
         return 2
     try:
         attach_telemetry()
-        report = run_mesh_only(args) if args.mesh_only else run(args)
+        if args.mesh_only:
+            report = run_mesh_only(args)
+        elif args.sync_only:
+            report = run_sync_only(args)
+        else:
+            report = run(args)
         report["metrics"] = dump_metrics()
     except Exception:
         traceback.print_exc()

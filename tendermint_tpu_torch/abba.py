@@ -59,6 +59,9 @@ def summary(report: dict) -> dict:
         "flat_warm_s": report.get("flat", {}).get("warm_batch_s_median"),
         "state_apply_s": [h["apply_s"] for h in report.get("state", {}).get("heights", [])] or None,
         "replay_commits_per_s": report.get("certifiers", {}).get("replay", {}).get("commits_per_s"),
+        "sync_blocks_per_s": {r: report["sync"][r]["blocks_per_s"] for r in ("a", "b")} if "sync" in report else None,
+        "sync_link_mb_s": {k: report["sync"]["link"][f"{k}_mb_s"] for k in ("secret", "plain")}
+        if "sync" in report else None,
         "stages": report.get("stages"),
         "device": {k: {"device_s": v.get("device_s"), "kernels": v.get("device_kernels"),
                        "busy_share": v.get("busy_share")} for k, v in dev.items()},

@@ -6,9 +6,9 @@ protocol through three logical connections (consensus/mempool/query,
 client (reference's local client) — a future gRPC transport slots in
 behind `ClientCreator` without touching consumers.
 
-The port's copy of `tendermint_tpu.abci`'s in-process half, with the
-same exports. The socket and gRPC transports import `p2p` at module
-level and come with the port's `p2p`.
+The port's copy of `tendermint_tpu.abci`, with the same exports. Its
+remote transports, `abci/socket.py` and `abci/grpc_transport.py`, are
+imported by module, as in the JAX package.
 """
 
 from tendermint_tpu_torch.abci.types import (

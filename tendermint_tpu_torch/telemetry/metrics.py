@@ -7,7 +7,9 @@ device, tables, mesh}, `kind` in {verify, hash, tables}, `queue` and
 `consumer` the pipeline owners, `direction` in {shrink, restore},
 `result` in {hit, miss}, `state` in {useful, padded, cached}, `mode` in
 {sequential, bisect}, `stage` the dispatch-handle stages, `lock` the
-ranked-lock names of `utils/lockrank.py`.
+ranked-lock names of `utils/lockrank.py`; the p2p, gossip and link
+families take the fixed offense, channel, message-kind and delivery
+vocabularies listed beside them.
 """
 
 from __future__ import annotations
@@ -223,7 +225,7 @@ TRACE_DROPPED = Counter(
 # The span-name catalog: every literal the port passes to TRACER.add()
 # or TRACER.span() (tests/test_torch_telemetry.py holds the port's
 # sources to it).
-SPAN_CATALOG = frozenset({"batcher.flush", "dispatch.launch"})
+SPAN_CATALOG = frozenset({"batcher.flush", "dispatch.launch", "p2p.hop"})
 
 # -- lock contention (utils/lockrank.py) ---------------------------------------
 #
@@ -258,6 +260,153 @@ LIGHTCLIENT_WALK_SECONDS = Histogram(
     buckets=LATENCY_BUCKETS,
 )
 
+# -- p2p (p2p/connection.py, switch.py, score.py) ------------------------------
+
+P2P_SENT_BYTES = Counter(
+    "tendermint_p2p_sent_bytes_total", "Frame bytes sent to peers"
+)
+P2P_RECV_BYTES = Counter(
+    "tendermint_p2p_recv_bytes_total", "Frame bytes received from peers"
+)
+P2P_PEERS = Gauge("tendermint_p2p_peers", "Connected peers")
+P2P_SEND_RATE = Gauge(
+    "tendermint_p2p_send_rate_bytes", "Aggregate send rate over live peers, bytes/s"
+)
+P2P_RECV_RATE = Gauge(
+    "tendermint_p2p_recv_rate_bytes", "Aggregate recv rate over live peers, bytes/s"
+)
+# Send-queue depth is the backpressure signal: the aggregate sum and the
+# worst single peer (per-peer series would be unbounded cardinality).
+P2P_SEND_QUEUE = Gauge(
+    "tendermint_p2p_send_queue_depth",
+    "Frames queued for send across all peers and channels",
+)
+P2P_SEND_QUEUE_MAX = Gauge(
+    "tendermint_p2p_send_queue_max",
+    "Deepest single-peer send queue (frames)",
+)
+P2P_SEND_WAIT = Histogram(
+    "tendermint_p2p_send_wait_seconds",
+    "Time a frame waited in a peer send queue before hitting the wire",
+    buckets=LATENCY_BUCKETS,
+)
+# `kind` is the fixed offense taxonomy of p2p/score.py, never peer ids.
+PEER_MISBEHAVIOR = Counter(
+    "tendermint_p2p_peer_misbehavior_total",
+    "Classified peer offenses debited against misbehavior scores",
+    labelnames=("kind",),
+)
+PEER_BANS = Counter(
+    "tendermint_p2p_peer_bans_total",
+    "Peers banned for crossing the misbehavior threshold",
+)
+
+# -- gossip observatory (telemetry/gossiplog.py) ------------------------------
+#
+# `channel` and `kind` are the fixed wire vocabularies below, mirrored
+# from the reactors by gossiplog.py (unknown -> "other").
+
+GOSSIP_CHANNELS = (
+    "pex",
+    "cns_state",
+    "cns_data",
+    "cns_vote",
+    "cns_votebits",
+    "mempool",
+    "evidence",
+    "blockchain",
+    "statesync",
+    "lightclient",
+    "ctrl",
+    "other",
+)
+GOSSIP_KINDS = (
+    "pex_request",
+    "pex_addrs",
+    "new_round_step",
+    "commit_step",
+    "proposal",
+    "proposal_pol",
+    "block_part",
+    "vote",
+    "has_vote",
+    "vote_set_maj23",
+    "vote_set_bits",
+    "proposal_heartbeat",
+    "tx",
+    "evidence_list",
+    "block_request",
+    "block_response",
+    "no_block",
+    "status_request",
+    "status_response",
+    "snapshots_request",
+    "snapshots_response",
+    "chunk_request",
+    "chunk_response",
+    "no_chunk",
+    "commit_request",
+    "commit_response",
+    "fc_request",
+    "fc_response",
+    "fc_subscribe",
+    "fc_announce",
+    "ping",
+    "pong",
+    "other",
+)
+GOSSIP_REDUNDANT_KINDS = ("vote", "block_part", "tx", "evidence")
+
+P2P_CHANNEL_BYTES = Counter(
+    "tendermint_p2p_channel_bytes_total",
+    "Frame bytes by p2p channel and direction (send/recv)",
+    labelnames=("channel", "dir"),
+)
+GOSSIP_MSGS = Counter(
+    "tendermint_gossip_msgs_total",
+    "Gossip messages by wire kind and direction (send/recv)",
+    labelnames=("kind", "dir"),
+)
+GOSSIP_REDUNDANT = Counter(
+    "tendermint_gossip_redundant_total",
+    "Duplicate gossip deliveries dedup'd after arrival, by kind",
+    labelnames=("kind",),
+)
+GOSSIP_REDUNDANT_BYTES = Counter(
+    "tendermint_gossip_redundant_bytes_total",
+    "Payload bytes of duplicate gossip deliveries, by kind",
+    labelnames=("kind",),
+)
+
+# -- link chaos (p2p/transport.py) ---------------------------------------------
+#
+# `result` is the fixed delivery taxonomy of the chaos layer; no
+# per-link labels.
+
+LINK_SENDS = Counter(
+    "tendermint_link_sends_total",
+    "ChaosEndpoint sends by delivery outcome (delivered / delayed / "
+    "dup / dropped / partitioned)",
+    labelnames=("result",),
+)
+LINK_DELIVERY_DELAY = Histogram(
+    "tendermint_link_delivery_delay_seconds",
+    "Extra latency injected per delayed delivery (propagation delay + "
+    "jitter + bandwidth serialization), as scheduled on the wheel",
+    buckets=LATENCY_BUCKETS,
+)
+LINK_BANDWIDTH_WAIT = Histogram(
+    "tendermint_link_bandwidth_wait_seconds",
+    "Token-bucket serialization wait per bandwidth-capped send (the "
+    "queueing component of the injected delay)",
+    buckets=LATENCY_BUCKETS,
+)
+LINK_INFLIGHT = Gauge(
+    "tendermint_link_inflight_deliveries",
+    "Delayed deliveries pending on the shared delivery wheel (the "
+    "thread-count regression signal: one thread serves all of these)",
+)
+
 # Pre-seed the known label values so reads see zero-valued series before
 # any instance or event.
 for _kind in ("verify", "hash", "tables"):
@@ -276,3 +425,25 @@ for _stage in ("queue_wait", "host_prep", "in_flight", "finalize"):
     LAUNCH_STAGE_SECONDS.labels(stage=_stage)
 for _mode in ("sequential", "bisect"):
     LIGHTCLIENT_WALK_SECONDS.labels(mode=_mode)
+for _kind in (
+    "bad_frame",
+    "oversize_frame",
+    "bad_msg",
+    "bad_sig",
+    "bad_vote",
+    "forged_block",
+    "forged_fullcommit",
+    "bad_evidence",
+    "flood",
+):
+    PEER_MISBEHAVIOR.labels(kind=_kind).inc(0)
+for _dir in ("send", "recv"):
+    for _chan in GOSSIP_CHANNELS:
+        P2P_CHANNEL_BYTES.labels(channel=_chan, dir=_dir).inc(0)
+    for _kind in GOSSIP_KINDS:
+        GOSSIP_MSGS.labels(kind=_kind, dir=_dir).inc(0)
+for _kind in GOSSIP_REDUNDANT_KINDS:
+    GOSSIP_REDUNDANT.labels(kind=_kind).inc(0)
+    GOSSIP_REDUNDANT_BYTES.labels(kind=_kind).inc(0)
+for _result in ("delivered", "delayed", "dup", "dropped", "partitioned", "congested"):
+    LINK_SENDS.labels(result=_result).inc(0)

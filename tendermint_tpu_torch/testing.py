@@ -281,3 +281,128 @@ class ChainSim:
         self.blocks.append(block)
         self.commits.append(commit)
         return block
+
+
+class SignedChainSim(ChainSim):
+    """`ChainSim` whose commits are signed directly with each validator's
+    key, with no check of each vote as it is added: a `VoteSet` checks
+    each vote alone, seconds a commit of 1,000 validators on the host.
+    The chain's own `apply_block` still verifies every last commit on
+    `verifier`."""
+
+    def _commit_for(self, block, part_set):
+        from tendermint_tpu_torch.types import VOTE_TYPE_PRECOMMIT, BlockID, Commit, Vote
+
+        bid = BlockID(block.hash(), part_set.header)
+        h = block.header.height
+        ts = self.genesis.genesis_time + h * 1_000_000_000
+        pre = []
+        for idx, priv in enumerate(self._privs_in_valset_order()):
+            v = Vote(priv.address, idx, h, 0, ts + idx, VOTE_TYPE_PRECOMMIT, bid)
+            pre.append(v.with_signature(priv._signer.sign(v.sign_bytes(self.chain_id))))
+        return Commit(block_id=bid, precommits=pre)
+
+
+# -- fast-sync fixtures: a store-backed server, a fresh syncing node ------------
+
+
+def chain_store(sim, db=None):
+    """A `BlockStore` holding `sim`'s blocks, each saved with the commit
+    signed for it (the seen commit), as a node that made the chain keeps
+    them."""
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.db.kv import MemDB
+
+    store = BlockStore(db if db is not None else MemDB())
+    for block, commit in zip(sim.blocks, sim.commits):
+        store.save_block(block, block.make_part_set(hasher=sim.hasher), commit)
+    return store
+
+
+def serving_switch(store, node_id: str, chain_id: str):
+    """A started `Switch` whose `BlockchainReactor(fast_sync=False)` serves
+    `store` to any peer that asks; it verifies and applies nothing, so it
+    holds no state and no app."""
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.p2p import NodeInfo, Switch
+
+    sw = Switch(NodeInfo(node_id=node_id, moniker="server", chain_id=chain_id))
+    sw.add_reactor("blockchain", BlockchainReactor(state=None, store=store, app_conn=None, fast_sync=False))
+    sw.start()
+    return sw
+
+
+class SyncingNode:
+    """A fresh node that fast-syncs: the genesis state on a `MemDB`, an
+    empty `BlockStore`, `app_conn`, and a started `Switch` with
+    `BlockchainReactor(fast_sync=True)` on `verifier`. `caught_up` is set
+    when the reactor calls `on_caught_up`, at `caught_up_at`
+    (`time.perf_counter()`)."""
+
+    def __init__(self, genesis, node_id: str, app_conn, verifier, hasher=None):
+        import threading
+
+        from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+        from tendermint_tpu_torch.blockchain.store import BlockStore
+        from tendermint_tpu_torch.db.kv import MemDB
+        from tendermint_tpu_torch.p2p import NodeInfo, Switch
+        from tendermint_tpu_torch.state import make_genesis_state
+
+        self.state = make_genesis_state(MemDB(), genesis)
+        self.state.save()
+        self.store = BlockStore(MemDB())
+        self.caught_up = threading.Event()
+        self.caught_up_at = None
+        self.reactor = BlockchainReactor(state=self.state, store=self.store, app_conn=app_conn, fast_sync=True,
+                                         on_caught_up=self._on_caught_up, verifier=verifier, hasher=hasher)
+        self.switch = Switch(NodeInfo(node_id=node_id, moniker="fresh", chain_id=genesis.chain_id))
+        self.switch.add_reactor("blockchain", self.reactor)
+        self.switch.start()
+
+    def _on_caught_up(self, state) -> None:
+        import time
+
+        self.caught_up_at = time.perf_counter()
+        self.state = state
+        self.caught_up.set()
+
+    def stop(self) -> None:
+        self.switch.stop()
+
+
+def preloaded_reactor(sim, app_conn, verifier, depth: int = 2):
+    """A fresh fast-syncing reactor with `sim`'s whole chain already in
+    its pool (the harness of the JAX package's `tests/test_fastsync.py`:
+    drive `_try_sync` directly, no network, so the pipeline's windows
+    and drains are deterministic). Returns (reactor, state, store)."""
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.db.kv import MemDB
+    from tendermint_tpu_torch.state import make_genesis_state
+
+    state = make_genesis_state(MemDB(), sim.genesis)
+    state.save()
+    store = BlockStore(MemDB())
+    reactor = BlockchainReactor(state=state, store=store, app_conn=app_conn, fast_sync=True, verifier=verifier,
+                                pipeline_depth=depth, hasher=sim.hasher)
+    reactor.pool.set_peer_height("srv", len(sim.blocks))
+    for h, b in enumerate(sim.blocks, start=1):
+        reactor.pool._blocks[h] = (b, "srv")
+    return reactor, state, store
+
+
+def forge_newest_precommit(sim, index: int) -> None:
+    """Flip one bit of precommit `index`'s signature in `sim`'s newest
+    commit, the one its next block carries as the last commit: the next
+    `advance` must then pass `commit_preverified=True`. The chain's
+    linkage stays intact (the forged commit is inside the next block
+    before that block is hashed), so a fast-syncing node finds the fault
+    only in the window's verdict."""
+    import dataclasses
+
+    commit = sim.commits[-1]
+    vote = commit.precommits[index]
+    sig = vote.signature
+    precommits = list(commit.precommits)
+    precommits[index] = vote.with_signature(bytes([sig[0] ^ 0x01]) + sig[1:])
+    sim.commits[-1] = dataclasses.replace(commit, precommits=precommits)

@@ -65,6 +65,12 @@ RANKS: dict[str, int] = {
     "dispatch.worker": 76,  # DispatchQueue._thread_lock
     "dispatch.state": 80,  # DispatchQueue._state_lock
     "dispatch.global": 84,  # default_dispatch_queue singleton lock
+    # p2p locks are leaves: held only over dict/counter surgery, never
+    # across reactor callbacks or sends.
+    "p2p.switch": 88,  # Switch._mtx
+    "p2p.scorer": 90,  # PeerScorer._lock
+    "p2p.conn.write": 92,  # tcp/secret per-connection write locks
+    "p2p.flowrate": 94,  # flowrate.Monitor._lock
 }
 
 _ENV = "TENDERMINT_TPU_LOCKRANK"

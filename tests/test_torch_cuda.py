@@ -718,3 +718,72 @@ def test_port_chain_applies_and_certifies_on_the_card(dev, monkeypatch):
     finally:
         light.coalescer.close()
         stack.close()
+
+
+SYNC_VALIDATORS = 1000
+
+
+def test_port_reactor_fast_syncs_windows_on_the_card(dev, monkeypatch):
+    """The port's pipelined fast-sync reactor on the card's stack (the
+    default minimum batch): a 1,000-validator chain of 33 heights
+    preloaded into a fresh reactor's pool (the harness of the JAX
+    package's `tests/test_fastsync.py`) applies heights 1-32 in two
+    windows of 16 commits, each one `madd_chain_fused` launch and one
+    finish, with every block, the state's app hash and validators equal
+    to the chain's; then the same chain with one precommit of height
+    20's commit forged inside block 21 applies window 1 and drains
+    window 2, whose verdict the card computed false."""
+    from tendermint_tpu_torch.abci.apps import KVStoreApp
+    from tendermint_tpu_torch.abci.client import local_client_creator
+    from tendermint_tpu_torch.services import verifier as V
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.testing import SignedChainSim, forge_newest_precommit, preloaded_reactor
+
+    monkeypatch.setattr(V, "_DEFAULTS", {})
+    stack = V.default_verifier(dev)
+    n, heights = SYNC_VALIDATORS, 33
+
+    def counts():
+        return (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches,
+                TT.finish_encode_compare.launches)
+
+    def sync(sim):
+        v = CoalescingVerifier(stack.inner)  # an empty signature cache
+        redone = []
+        try:
+            reactor, state, store = preloaded_reactor(sim, local_client_creator(KVStoreApp())().consensus, v)
+            real_redo = reactor._redo
+            reactor._redo = lambda h: (redone.append(h), real_redo(h))
+            before = counts()
+            reactor._try_sync()
+            reactor.on_stop()
+            return state, store, tuple(b - a for a, b in zip(before, counts())), redone
+        finally:
+            v.coalescer.close()
+
+    chain_verifier = CoalescingVerifier(stack.inner)  # the chain's own verifies, apart from the syncs' caches
+    try:
+        honest = SignedChainSim(n_vals=n, verifier=chain_verifier)
+        forged = SignedChainSim(n_vals=n, verifier=chain_verifier)
+        for h in range(1, heights + 1):
+            honest.advance(txs=[b"h%d=%d" % (h, h)])
+            forged.advance(txs=[b"h%d=%d" % (h, h)], commit_preverified=h == 21)
+            if h == 20:
+                forge_newest_precommit(forged, 5)
+    finally:
+        chain_verifier.coalescer.close()
+    try:
+        state, store, delta, redone = sync(honest)
+        assert store.height == heights - 1 and not redone
+        assert delta == (0, 2, 0, 2)
+        for h in range(1, heights):
+            assert store.load_block(h).hash() == honest.blocks[h - 1].hash()
+        assert state.app_hash == honest.blocks[heights - 1].header.app_hash
+        assert state.validators.hash() == honest.state.validators.hash()
+        state, store, delta, redone = sync(forged)
+        assert store.height == 16 and store.load_block(17) is None and redone == [17]
+        assert delta == (0, 2, 0, 2)
+        snap = stack.inner.snapshot()
+        assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
+    finally:
+        stack.close()

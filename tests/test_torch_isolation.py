@@ -1,7 +1,11 @@
 """The port stands alone: no module of `tendermint_tpu_torch`, and not
 `chip_smoke.py`, imports jax or anything of the `tendermint_tpu`
 package. (`tendermint_tpu_torch` itself starts with `tendermint_tpu`, so
-names are matched exactly or by the `tendermint_tpu.` prefix.)"""
+names are matched exactly or by the `tendermint_tpu.` prefix.) Nor does
+any of them import `cryptography`, which a host with the card need not have: the
+SecretConnection runs on the port's own X25519, HKDF and
+ChaCha20-Poly1305. `grpc` is imported only inside the functions of
+`abci/grpc_transport.py`, never at module level."""
 
 from __future__ import annotations
 
@@ -60,6 +64,48 @@ def test_no_forbidden_import_lines(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+def _imports(path: pathlib.Path):
+    """(line, module name, inside a function) for every absolute import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+
+    def visit(node, in_fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                found.extend((child.lineno, a.name, in_fn) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                found.append((child.lineno, child.module or "", in_fn))
+            visit(child, in_fn or isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)))
+
+    visit(tree, False)
+    return found
+
+
+def _is(name: str, package: str) -> bool:
+    return name == package or name.startswith(package + ".")
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_cryptography_import(path):
+    bad = [(line, n) for line, n, _ in _imports(path) if _is(n, "cryptography")]
+    assert not bad, f"{path.name} imports cryptography at {bad}"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_grpc_only_inside_functions_of_the_grpc_transport(path):
+    uses = [(line, in_fn) for line, n, in_fn in _imports(path) if _is(n, "grpc")]
+    if path == PORT / "abci" / "grpc_transport.py":
+        assert uses and all(in_fn for _, in_fn in uses), uses
+    else:
+        assert not uses, f"{path.name} imports grpc at {uses}"
+
+
+def test_import_scanner_sees_nested_and_module_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import os\nimport grpc\ndef f():\n    import grpc.aio\n    from cryptography import x\n")
+    assert _imports(probe) == [(1, "os", False), (2, "grpc", False), (4, "grpc.aio", True), (5, "cryptography", True)]
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = """
 import importlib, pkgutil, sys
@@ -72,6 +118,8 @@ bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
     or m == "tendermint_tpu" or m.startswith("tendermint_tpu.")
+    or m == "cryptography" or m.startswith("cryptography.")
+    or m == "grpc" or m.startswith("grpc.")
 )
 assert not bad, bad
 assert len(names) >= 10, names

@@ -63,6 +63,7 @@ def test_rank_table_matches_the_jax_package():
     assert set(lockrank.RANKS) == {
         "dispatch.handle", "batcher.shard", "batcher.window",
         "dispatch.worker", "dispatch.state", "dispatch.global",
+        "p2p.switch", "p2p.scorer", "p2p.conn.write", "p2p.flowrate",
     }
 
 
