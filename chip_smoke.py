@@ -2,11 +2,12 @@
 """Drive the PyTorch/CUDA port's ed25519 verify path and Merkle hash
 plane once on the card.
 
-    python3 chip_smoke.py            # one CUDA card, about 5-7 minutes
+    python3 chip_smoke.py            # one CUDA card, about 5 minutes
 
 Phases (inputs made from --seed with numpy, signed with the port's
-pure-Python RFC 8032 module, messages as long as a canonical vote's sign
-bytes):
+pure-Python RFC 8032 module, more than 512 signatures at once in a
+pool of spawned worker processes, one a core but one; messages as long
+as a canonical vote's sign bytes):
 
 0. environment: card name and power limit, torch/CUDA/nvcc versions;
    builds the kernels from `tendermint_tpu_torch/csrc` (ptxas register
@@ -117,8 +118,41 @@ bytes):
    window 1 applies, window 2 launches, its verdict is false on the card
    with the forged validator's message, and it drains unapplied. Its
    `sync_link`, `sync_run` and `sync` lines carry the numbers and the
-   launches; then the stack is closed. `--sync-only` runs phase 0 and
-   this phase alone;
+   launches. `--sync-only` runs phase 0 and this phase alone;
+11. consensus, run after phase 10 on the same stack: the port's own
+   mempool, evidence pool and consensus. `consensus_mempool`: a
+   `Mempool` (signed txs on) on `KVStoreApp` takes 4,096 signed
+   envelopes (phase 4's keys), one forged envelope and 256 plain txs
+   from 4 threads through `check_tx_async`, as an RPC broadcast feeds
+   it; every `Result` must equal a host mempool's, the forged one
+   `UNAUTHORIZED`, every envelope of an ingress window of 512 or more a
+   row of a flat call the card answered, `reap` in each thread's order,
+   `update` emptying the pool. `consensus_storm` (BASELINE config 5): a `ConsensusState`
+   is validator 0 of phase 2's 10,000 keys at equal power (the stack's
+   verifier and hasher, `Mempool`, `EvidencePool`, `BlockStore`,
+   `KVStoreApp`, a WAL in a temporary directory, `test_config()`,
+   `MockTicker`); the smoke plays the other 9,999 for heights 1 and 2
+   (the proposer's signed proposal where the node does not propose,
+   then each height's prevotes and precommits as backlogs through
+   `add_vote`); a forged prevote must be the one vote refused and a
+   second, conflicting precommit must reach the evidence pool; both
+   heights commit the proposed blocks, the app hash equals `kv_app_hash`
+   of the committed txs, every lane of a drained vote run of 512 or more
+   is a row of a flat call the card answered (`ladder`), and
+   height 2's last commit of 10,000 launches the entries chain and the
+   finish in `validate_block`; each height's seconds from proposal to
+   commit are split by the height ledger's phases. `consensus_net`
+   (BASELINE config 1): four validators with consensus, mempool and
+   evidence reactors on `Switch`es linked in process run 10 heights at
+   the default minimum device batch and 10 at 0, with 512 signed txs at
+   node 1 and one `DuplicateVoteEvidence` at node 0: every tx committed
+   once and the evidence within 5 heights on all four, equal stores and
+   app hashes (heights/s a run). Every step fails unless the launch
+   ledger's records account for each of its launches once its calls
+   have joined (`StepLedger.settle`), and on a host fallback or a primary
+   failure. Its `consensus_*` lines carry the numbers and the
+   launches; then the stack is closed. `--consensus-only` runs phase 0
+   and this phase alone;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -302,9 +336,11 @@ PROFILED = {
     "sha512_masked": "sha512_masked_kernel",
     "merkle_level": "merkle_level_kernel",
 }
-# torch.profiler sessions a measurement may take (`profiled`), and the
-# sessions of this run that recorded no device activity and were redone
-PROFILE_TRIES = 3
+# torch.profiler sessions a measurement may take (`profiled`), the pause
+# after a session that recorded no device activity (such losses came three
+# in a row on a slow host), and the sessions of this run that were redone
+PROFILE_TRIES = 6
+PROFILE_RETRY_PAUSE_S = 0.5
 LOST_SESSIONS = [0]
 # the hash phase's sizes: a block of TXS txs of TX_BYTES (tm-bench's
 # default tx size; BASELINE config 4's 65k-tx block), a fast-sync window
@@ -384,6 +420,31 @@ def log(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
+# signing: up to SIGN_INLINE_MAX signatures a call in this process, more
+# in SIGNERS spawned worker processes (pure-Python signing holds a core)
+SIGN_INLINE_MAX = 512
+SIGNERS = max(1, min(8, os.cpu_count() or 1) - 1)
+_SIGNER_POOL = None
+
+
+def signer_pool():
+    """The signers' pool, made at its first use; `close_signers` stops it."""
+    global _SIGNER_POOL
+    if _SIGNER_POOL is None:
+        import multiprocessing
+
+        _SIGNER_POOL = multiprocessing.get_context("spawn").Pool(SIGNERS)
+    return _SIGNER_POOL
+
+
+def close_signers() -> None:
+    global _SIGNER_POOL
+    if _SIGNER_POOL is not None:
+        _SIGNER_POOL.close()
+        _SIGNER_POOL.join()
+        _SIGNER_POOL = None
+
+
 class Inputs:
     """Keys, messages and signatures for every phase, from one seed."""
 
@@ -399,12 +460,16 @@ class Inputs:
         self.pubs = [ed25519_ref.public_from_seed(s) for s in self.seeds]
         self.keygen_s = time.perf_counter() - t0
 
+    def sign_many(self, pairs: list) -> list[bytes]:
+        """The signatures of (seed, message) `pairs`, in order; the
+        signers' pool signs a large call."""
+        if len(pairs) <= SIGN_INLINE_MAX or SIGNERS < 2:
+            return [self.ref.sign(seed, msg) for seed, msg in pairs]
+        return signer_pool().starmap(self.ref.sign, pairs, chunksize=max(1, len(pairs) // (4 * SIGNERS)))
+
     def msgs(self, n: int) -> list[bytes]:
         raw = self.rng.integers(0, 256, size=(n, MSG_LEN), dtype=np.uint8)
         return [bytes(row) for row in raw]
-
-    def sign(self, idx: int, msg: bytes) -> bytes:
-        return self.ref.sign(self.seeds[idx], msg)
 
 
 def bad_pubkey() -> bytes:
@@ -429,7 +494,7 @@ def make_commit(inp: Inputs, keys: list[int], plant: dict):
     n = len(keys)
     pubs = [inp.pubs[i] for i in keys]
     msgs = inp.msgs(n)
-    sigs = [inp.sign(k, m) for k, m in zip(keys, msgs)]
+    sigs = inp.sign_many([(inp.seeds[k], m) for k, m in zip(keys, msgs)])
     expected = np.ones(n, dtype=bool)
     for kind, lane in plant.items():
         expected[lane] = False
@@ -724,6 +789,7 @@ def profiled(fn):
         if any(e.device_type == DeviceType.CUDA for e in events):
             return events
         LOST_SESSIONS[0] += 1
+        time.sleep(PROFILE_RETRY_PAUSE_S)
     raise AssertionError(f"torch.profiler recorded no device activity in {PROFILE_TRIES} sessions")
 
 
@@ -1229,8 +1295,10 @@ class StepLedger:
     against the kernel wrappers' launches it made
     (`testing.ledger_launches` against `testing.kernel_launches`: one
     record a dispatch unit, its kernel once a shard, the finish after
-    every verify); `close()` fails on a record with an error the step did
-    not inject and prints the step's `launches` line, the ledger's
+    every verify); a step whose calls run on threads of their own (a
+    consensus, the ingress, a net) calls `settle()` once they have
+    joined instead; `close()` fails on a record with an error the step
+    did not inject and prints the step's `launches` line, the ledger's
     `summarize()` of its records."""
 
     def __init__(self, phase: str, step: str):
@@ -1238,6 +1306,7 @@ class StepLedger:
 
         self.phase, self.step = phase, step
         self.mark = len(LAUNCHLOG)
+        self.base = counts()
         self.kernels: dict = {}
 
     def call(self, fn):
@@ -1260,6 +1329,24 @@ class StepLedger:
         from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
 
         return LAUNCHLOG.recent()[self.mark:]
+
+    def settle(self, timeout: float = 30.0) -> dict:
+        """The kernel launches since the step began, once its records
+        account for every one of them (a dispatch unit commits its record
+        at its join)."""
+        from tendermint_tpu_torch.testing import kernel_launches, ledger_launches
+
+        deadline = time.time() + timeout
+        while True:
+            now = counts()
+            c = {k: now[k] - self.base[k] for k in now}
+            got, want = ledger_launches(self.records()), kernel_launches(c)
+            if got == want:
+                return c
+            if time.time() > deadline:
+                raise AssertionError(f"{self.phase} {self.step}: the ledger's records account for {got} launches, "
+                                     f"the kernel wrappers counted {want}")
+            time.sleep(0.01)
 
     def close(self, errors: int = 0) -> dict:
         from tendermint_tpu_torch.telemetry.launchlog import summarize
@@ -1732,11 +1819,10 @@ def types_commit(inp: Inputs, vs, keys: list[int], height: int, tag: int):
 
     digest = hashlib.sha256(b"%d/%d" % (height, tag)).digest()
     bid = BlockID(digest, PartSetHeader(total=1 + tag % 7, hash=digest[:20]))
-    pre = []
-    for idx, (val, key) in enumerate(zip(vs.validators, keys)):
-        v = Vote(val.address, idx, height, 0, TYPES_TIME_NS + idx, VOTE_TYPE_PRECOMMIT, bid)
-        pre.append(v.with_signature(inp.sign(key, v.sign_bytes(TYPES_CHAIN))))
-    return bid, Commit(block_id=bid, precommits=pre)
+    votes = [Vote(val.address, idx, height, 0, TYPES_TIME_NS + idx, VOTE_TYPE_PRECOMMIT, bid)
+             for idx, val in enumerate(vs.validators)]
+    sigs = inp.sign_many([(inp.seeds[key], v.sign_bytes(TYPES_CHAIN)) for v, key in zip(votes, keys)])
+    return bid, Commit(block_id=bid, precommits=[v.with_signature(sig) for v, sig in zip(votes, sigs)])
 
 
 def forged_at(commit, idx: int):
@@ -2001,11 +2087,10 @@ def smoke_chain(inp, keys, app, verifier, hasher, chain_id, signed=None):
             if signed is not None and bid in signed:
                 return signed[bid]
             h = block.header.height
-            pre = []
-            for idx, val in enumerate(self.state.validators.validators):
-                v = Vote(val.address, idx, h, 0, TYPES_TIME_NS + idx, VOTE_TYPE_PRECOMMIT, bid)
-                pre.append(v.with_signature(inp.ref.sign(self.seeds[val.address], v.sign_bytes(self.chain_id))))
-            commit = Commit(block_id=bid, precommits=pre)
+            votes = [Vote(val.address, idx, h, 0, TYPES_TIME_NS + idx, VOTE_TYPE_PRECOMMIT, bid)
+                     for idx, val in enumerate(self.state.validators.validators)]
+            sigs = inp.sign_many([(self.seeds[v.validator_address], v.sign_bytes(self.chain_id)) for v in votes])
+            commit = Commit(block_id=bid, precommits=[v.with_signature(sig) for v, sig in zip(votes, sigs)])
             if signed is not None:
                 signed[bid] = commit
             return commit
@@ -2696,6 +2781,451 @@ def run_sync(stack, inp, sync, ns: int) -> dict:
     return rep
 
 
+CONS_CHAIN = "chip-smoke-consensus"
+CONS_HEIGHTS = 2
+CONS_FORGED = 137  # set index of the validator whose height-1 prevote is forged
+CONS_CONFLICT = 271  # set index of the validator that precommits twice at height 1
+CONS_TXS = 256  # txs of each block the smoke proposes, and in the node's own mempool
+FLOOD_KEYS = 4096  # phase 4's keys: one signed envelope each
+FLOOD_PLAIN = 256
+FLOOD_THREADS = 4
+# the probe's ingress window (the default is 2 ms): long enough that the
+# flood's windows close at the ingress's 1,024 txs, not on the clock
+FLOOD_WINDOW_S = 0.5
+FLOOD_TIMEOUT_S = 300.0
+NET_CHAIN = "chip-smoke-net"
+NET_VALIDATORS = 4
+NET_HEIGHTS = 10  # heights a run
+NET_RUNS = (("default", None), ("min_batch_0", 0))  # each run's minimum device batch (None: the stack's)
+NET_TXS = 512
+NET_EVIDENCE_WITHIN = 5  # heights from the evidence's admission to its commit on every node
+NET_TIMEOUT_S = 240.0
+
+
+def flood_txs(inp, rng, keys: int) -> tuple[list[bytes], int]:
+    """`keys` signed envelopes, one a key of phase 4's, one forged
+    envelope and FLOOD_PLAIN plain txs, mixed in a seeded order; returns
+    (txs, position of the forged envelope)."""
+    from tendermint_tpu_torch.crypto import PrivKey
+    from tendermint_tpu_torch.mempool import make_signed_tx
+
+    body = rng.integers(0, 256, size=(keys + 1, 16), dtype=np.uint8)
+    txs = [make_signed_tx(PrivKey(inp.seeds[k]), b"flood-%05d=" % k + bytes(body[k]).hex().encode())
+           for k in range(keys)]
+    forged = bytearray(make_signed_tx(PrivKey(inp.seeds[0]), b"forged=" + bytes(body[keys]).hex().encode()))
+    forged[40] ^= 0x01  # a bit of the signature
+    txs.append(bytes(forged))
+    txs += [b"plain-%04d=%d" % (i, i) for i in range(FLOOD_PLAIN)]
+    order = rng.permutation(len(txs))
+    txs = [txs[i] for i in order]
+    return txs, int(np.argwhere(order == keys)[0][0])
+
+
+def admit_all(mp, txs, threads: int, timeout: float) -> tuple[list, float]:
+    """`txs` into `mp` through `check_tx_async` (the RPC broadcast's
+    path) from `threads` threads, thread t sending txs t, t + threads, ...
+    in order; returns each tx's `Result` and the seconds until the last
+    one resolved."""
+    import threading
+
+    results: list = [None] * len(txs)
+    done = threading.Semaphore(0)
+
+    def resolve(i, res):
+        results[i] = res
+        done.release()
+
+    def submit(t):
+        for i in range(t, len(txs), threads):
+            mp.check_tx_async(txs[i], cb=lambda res, i=i: resolve(i, res))  # a duplicate calls back at once
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=submit, args=(t,)) for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    for _ in txs:
+        if not done.acquire(timeout=timeout):
+            raise AssertionError(f"mempool: {sum(r is None for r in results)} admissions never resolved")
+    return results, time.perf_counter() - t0
+
+
+def run_consensus_mempool(stack, inp, sync, keys: int) -> dict:
+    """Phase 11, step 1: the mempool flood as an RPC broadcast feeds it.
+    A port `Mempool` (signed txs on, batched ingress) on `KVStoreApp` with
+    `verifier=` a coalescer over the stack's resilient backend (an empty
+    signature cache each pass) takes `keys` signed envelopes, one forged
+    envelope and FLOOD_PLAIN plain txs from FLOOD_THREADS threads through
+    `check_tx_async`, once at the default ingress window (BASELINE
+    config 4) and once at FLOOD_WINDOW_S (a probe of the ingress-to-`ladder`
+    path). Every `Result` must equal a host mempool's (`verifier=None`:
+    the host's `PubKey.verify` a signature), the forged one
+    `UNAUTHORIZED`; every envelope of a window of the minimum batch or
+    more must be a row of a flat call the card answered, and the probe
+    must reach `ladder`; `reap` returns each thread's admitted txs in its
+    order, and `update` with them empties the pool."""
+    from tendermint_tpu_torch.abci.apps import KVStoreApp
+    from tendermint_tpu_torch.abci.client import local_client_creator
+    from tendermint_tpu_torch.abci.types import CodeType
+    from tendermint_tpu_torch.mempool import Mempool
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.testing import device_flat_rows
+
+    backend = stack.inner.primary
+    health = StackHealth(stack.inner)
+    rng = np.random.default_rng(inp.seed + 11)
+    t0 = time.perf_counter()
+    txs, forged_at = flood_txs(inp, rng, keys)
+    rep: dict = {"envelopes": keys, "plain": FLOOD_PLAIN, "txs": len(txs), "threads": FLOOD_THREADS,
+                 "sign_s": time.perf_counter() - t0, "passes": []}
+
+    def flood(window_s):
+        # each pass on an empty signature cache over the stack's backend
+        verifier = CoalescingVerifier(stack.inner)
+        mp = Mempool(local_client_creator(KVStoreApp())().mempool, verifier=verifier, ingress_window_s=window_s)
+        windows: list[int] = []  # txs a window
+        lanes: list[int] = []  # signed envelopes a window
+        launch = mp._ingress._launch
+
+        def counted(batch, reason):
+            windows.append(len(batch))
+            lanes.append(sum(1 for adm in batch if adm.parsed is not None))
+            return launch(batch, reason)
+
+        mp._ingress._launch = counted
+        try:
+            led = StepLedger("consensus_mempool", f"at window {mp._ingress._window_s} s")
+            results, admit_s = admit_all(mp, txs, FLOOD_THREADS, FLOOD_TIMEOUT_S)
+            sync()
+            c = led.settle()
+            backend_calls = device_flat_rows(led.records(), lanes, backend._min_batch, f"consensus_mempool {led.step}")
+            reaped = [bytes(t) for t in mp.reap(-1)]
+            size_before = mp.size()
+            mp.lock()
+            try:
+                mp.update(1, mp.reap(-1))
+            finally:
+                mp.unlock()
+            size_after = mp.size()
+        finally:
+            mp.close()
+            verifier.coalescer.close()
+        admitted = [tx for tx, res in zip(txs, results) if res.is_ok]
+        if len(admitted) != len(txs) - 1 or sorted(reaped) != sorted(admitted) or size_before != len(admitted):
+            raise AssertionError(f"consensus_mempool: {len(admitted)} admitted, {len(reaped)} reaped, "
+                                 f"size {size_before}, of {len(txs)} txs")
+        at = {tx: i for i, tx in enumerate(reaped)}
+        for t in range(FLOOD_THREADS):
+            mine = [at[tx] for tx, res in zip(txs[t::FLOOD_THREADS], results[t::FLOOD_THREADS]) if res.is_ok]
+            if mine != sorted(mine):
+                raise AssertionError(f"consensus_mempool: thread {t}'s txs reaped out of their arrival order")
+        if size_after != 0:
+            raise AssertionError(f"consensus_mempool: {size_after} txs left after update")
+        health.check("consensus_mempool")
+        row = {"window_s": mp._ingress._window_s, "admit_s": admit_s, "admission_txs_per_s": len(txs) / admit_s,
+               "windows": len(windows), "window_max": max(windows),
+               "windows_of_min_batch_or_more": sum(1 for n in lanes if n >= backend._min_batch), "backend": backend_calls,
+               "launches": c}
+        log({"phase": "consensus_mempool_pass", **row})
+        return results, row
+
+    # the default window first: its small windows verify on the host, whose
+    # memo would answer a later pass's host verifies at once
+    passes = [flood(None), flood(FLOOD_WINDOW_S)]
+    host = Mempool(local_client_creator(KVStoreApp())().mempool, verifier=None)
+    try:
+        t0 = time.perf_counter()
+        want, _ = admit_all(host, txs, 1, FLOOD_TIMEOUT_S)
+        rep["host_s"] = time.perf_counter() - t0
+    finally:
+        host.close()
+
+    def outcome(res):
+        return (res.code, res.data, res.log)
+
+    for results, row in passes:
+        diff = [i for i, (a, b) in enumerate(zip(results, want)) if outcome(a) != outcome(b)]
+        if diff:
+            raise AssertionError(f"consensus_mempool: {len(diff)} results differ from the host's, first at tx "
+                                 f"{diff[0]}: {outcome(results[diff[0]])} against {outcome(want[diff[0]])}")
+        if results[forged_at].code != CodeType.UNAUTHORIZED:
+            raise AssertionError(f"consensus_mempool: the forged envelope came back {results[forged_at]!r}")
+        rep["passes"].append(row)
+    if passes[1][1]["launches"]["ladder"] == 0:
+        raise AssertionError("consensus_mempool: no ingress window reached the ladder")
+    rep["forged_code"] = int(CodeType.UNAUTHORIZED)
+    log({"phase": "consensus_mempool", **{k: v for k, v in rep.items() if k != "passes"}})
+    return rep
+
+
+def run_consensus_storm(stack, inp, sync, n: int, heights: int = CONS_HEIGHTS) -> dict:
+    """Phase 11, step 2: BASELINE config 5 at full width. A port
+    `ConsensusState` is validator 0 of `n` keys of phase 2's at equal
+    power (`testing.StormValidator`: `verifier=` and `hasher=` the stack's,
+    the port's `Mempool`, `EvidencePool`, `BlockStore(MemDB())`,
+    `KVStoreApp`, a WAL in a temporary directory, `test_config()`). The
+    smoke plays the other validators for `heights` heights: the
+    proposer's proposal where the node does not propose, then each
+    height's prevotes as one backlog and, once the node has precommitted,
+    the precommits as one backlog. At height 1 one prevote is forged (it
+    must be the one vote refused) and one validator precommits twice (its
+    `DuplicateVoteEvidence` must reach the pool). Every height must
+    commit the proposed block, the app hash must equal `kv_app_hash` of
+    the committed txs, every flat call of the minimum batch or more must
+    launch one `ladder`, and height 2's last commit (which carries the
+    node's own precommit, a lane the signature cache has never seen)
+    launches the entries chain and the finish in `validate_block`."""
+    import shutil
+    import tempfile
+
+    import tendermint_tpu_torch.state as state_mod
+    from tendermint_tpu_torch.crypto import PubKey
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.testing import StormValidator, device_flat_rows
+    from tendermint_tpu_torch.types import (
+        VOTE_TYPE_PRECOMMIT, VOTE_TYPE_PREVOTE, BlockID, GenesisDoc, GenesisValidator, PartSetHeader,
+    )
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    hasher = default_hasher()
+    backend = stack.inner.primary
+    health = StackHealth(stack.inner, hasher)
+    gen = GenesisDoc(chain_id=CONS_CHAIN, genesis_time=TYPES_TIME_NS,
+                     validators=[GenesisValidator(pub_key=PubKey(inp.pubs[k]), power=TYPES_POWER) for k in range(n)])
+    seeds = {PubKey(inp.pubs[k]).address: inp.seeds[k] for k in range(n)}
+    node = PubKey(inp.pubs[0]).address
+    wal_dir = tempfile.mkdtemp(prefix="chip-smoke-wal-")
+    rep: dict = {"validators": n, "heights": []}
+    entries_in_validate: list = []
+    real_validate = state_mod.validate_block
+
+    def validate(state, block, *a, **kw):
+        before = counts()["madd_chain_entries"]
+        try:
+            return real_validate(state, block, *a, **kw)
+        finally:
+            entries_in_validate.append((block.header.height, counts()["madd_chain_entries"] - before))
+
+    wal0 = _hist("tendermint_wal_fsync_seconds")
+    with TableCacheKept(backend):
+        sv = StormValidator(gen, seeds, node, inp.sign_many, stack, hasher, wal_path=os.path.join(wal_dir, "cs.wal"))
+        order = [v.address for v in sv.cs.validators.validators]
+        node_idx = order.index(node)
+        forged_idx, conflict_idx = (i if i != node_idx else i + 1 for i in (CONS_FORGED % n, CONS_CONFLICT % n))
+        for i in range(CONS_TXS):
+            sv.mempool.check_tx_async(b"node-%04d=%d" % (i, i))
+        state_mod.validate_block = validate
+        led = StepLedger("consensus", "storm")
+        sv.cs.start()
+        try:
+            hvs1 = None
+            for h in range(1, heights + 1):
+                smoke_txs = [b"h%d-%04d=%d" % (h, i, i) for i in range(CONS_TXS)]
+                bid, block, prop, parts = sv.propose(h, smoke_txs)
+                if h == 1:
+                    hvs1 = sv.cs.votes
+                t0 = time.perf_counter()
+                ts = time.time_ns()
+                prevotes = sv.votes(h, VOTE_TYPE_PREVOTE, bid, ts)
+                precommits = sv.votes(h, VOTE_TYPE_PRECOMMIT, bid, ts)
+                if h == 1:
+                    pos = {v.validator_index: i for i, v in enumerate(prevotes)}
+                    bad = prevotes[pos[forged_idx]]
+                    prevotes[pos[forged_idx]] = bad.with_signature(forge(bad.signature))
+                    twice = sv.votes(h, VOTE_TYPE_PRECOMMIT, BlockID(b"", PartSetHeader.zero()), ts + 1)
+                    precommits.insert(pos[conflict_idx] + 1, twice[pos[conflict_idx]])
+                sign_s = time.perf_counter() - t0
+                drains0 = len(sv.drains)
+                t_play = sv.play(prop, parts, prevotes, precommits)
+                t_commit, committed = sv.wait_commit(h)
+                rec = None
+                deadline = time.time() + 10
+                while rec is None and time.time() < deadline:
+                    rec = next((r for r in sv.cs.height_ledger.recent() if r.get("height") == h), None)
+                    time.sleep(0 if rec is not None else 0.01)
+                if committed.hash() != bid.hash:
+                    raise AssertionError(f"consensus_storm: height {h} committed {committed.hash().hex()}, "
+                                         f"proposed {bid.hash.hex()}")
+                rep["heights"].append({
+                    "height": h, "proposer": "node" if prop is None else "smoke", "sign_s": sign_s,
+                    "proposal_to_commit_s": t_commit - t_play,
+                    "phases_s": {k: p["s"] for k, p in (rec or {}).get("phases", {}).items()},
+                    "critical_path": (rec or {}).get("critical_path"), "drains": sv.drains[drains0:],
+                    "drain_lanes": sv.drain_lanes[drains0:],
+                })
+                log({"phase": "consensus_storm_height", **rep["heights"][-1]})
+        finally:
+            state_mod.validate_block = real_validate
+            sv.cs.stop()
+            sv.mempool.close()
+            sv.evidence.close()
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    sync()
+    c = led.settle()
+    rep["backend"] = device_flat_rows(led.records(), sv.drain_lanes, backend._min_batch, "consensus_storm")
+    blocks = [sv.store.load_block(h) for h in range(1, heights + 1)]
+    want_app = kv_app_hash([[bytes(tx) for tx in b.data.txs] for b in blocks])
+    if sv.cs.state.last_block_height != heights or sv.cs.state.app_hash != want_app:
+        raise AssertionError(f"consensus_storm: state at {sv.cs.state.last_block_height}, app hash "
+                             f"{sv.cs.state.app_hash.hex()}, expected {want_app.hex()}")
+    pv1 = hvs1.prevotes(0)
+    missing = [i for i in range(n) if pv1.get_by_index(i) is None]
+    if missing != [forged_idx]:
+        raise AssertionError(f"consensus_storm: height 1's prevotes lack {missing[:8]}, expected [{forged_idx}]")
+    evs = [e for e in sv.evidence.pending_evidence() + [e for b in blocks for e in b.evidence.evidence]
+           if isinstance(e, DuplicateVoteEvidence)]
+    if [e.vote_a.validator_address for e in evs] != [order[conflict_idx]]:
+        raise AssertionError(f"consensus_storm: duplicate-vote evidence {evs!r}, expected one of validator "
+                             f"{conflict_idx}")
+    if c["madd_chain_entries"] != 1 or sum(e for hh, e in entries_in_validate if hh == 2) != 1:
+        raise AssertionError(f"consensus_storm: entries chain launches {c['madd_chain_entries']}, in validate_block "
+                             f"{entries_in_validate}; height 2's last commit must launch it once there")
+    if c["ladder"] == 0:
+        raise AssertionError("consensus_storm: no vote drain reached the ladder")
+    health.check("consensus_storm")
+    wal = _hist("tendermint_wal_fsync_seconds")
+    rep.update({
+        "node_index": node_idx, "forged_index": forged_idx, "conflict_index": conflict_idx,
+        "evidence_pending": len(sv.evidence.pending_evidence()), "app_hash": want_app.hex(),
+        "entries_in_validate": entries_in_validate, "wal_records": wal[1] - wal0[1],
+        "wal_fsync_s": wal[0] - wal0[0], "launches": c,
+    })
+    log({"phase": "consensus_storm", **{k: v for k, v in rep.items() if k != "heights"}})
+    return rep
+
+
+def run_consensus_net(stack, inp, sync) -> dict:
+    """Phase 11, step 3: BASELINE config 1. NET_VALIDATORS port
+    validators (`testing.NetValidator`: consensus, mempool and evidence
+    reactors on a `Switch`, each its own `KVStoreApp`, `BlockStore` and a
+    signature cache of its own over the stack's backend, as separate
+    nodes would have) linked in process run NET_HEIGHTS heights at the
+    default minimum device batch, then NET_HEIGHTS at minimum batch 0,
+    where every vote and commit that reaches the backend launches.
+    NET_TXS signed txs go in at node 1 and one `DuplicateVoteEvidence` at
+    node 0's pool. Every tx must be committed once on every node, the
+    evidence within NET_EVIDENCE_WITHIN heights on every node, and the
+    stores must hold equal blocks, each node's app hash `kv_app_hash` of
+    its txs; once the nodes stop, the launch ledger's records account
+    for every launch of the step (`StepLedger.settle`)."""
+    from collections import Counter
+
+    from tendermint_tpu_torch.crypto import PrivKey
+    from tendermint_tpu_torch.mempool import make_signed_tx
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.testing import (
+        NetValidator, byzantine_signed_vote, make_block_id, make_genesis, start_net,
+    )
+    from tendermint_tpu_torch.types import VOTE_TYPE_PREVOTE
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    hasher = default_hasher()
+    backend = stack.inner.primary
+    health = StackHealth(stack.inner, hasher)
+    genesis, privs = make_genesis(NET_VALIDATORS, chain_id=NET_CHAIN)
+    verifiers = [CoalescingVerifier(stack.inner) for _ in range(NET_VALIDATORS)]
+    nodes = [NetValidator(i, genesis, privs, verifiers[i], hasher) for i in range(NET_VALIDATORS)]
+    txs = [make_signed_tx(PrivKey(inp.seeds[k]), b"net-%04d=%d" % (k, k)) for k in range(NET_TXS)]
+    rep: dict = {"validators": NET_VALIDATORS, "txs": NET_TXS, "runs": []}
+    min_batch = backend._min_batch
+
+    def wait_heights(top: int) -> None:
+        deadline = time.time() + NET_TIMEOUT_S
+        while min(nd.height for nd in nodes) < top:
+            for nd in nodes:
+                if nd.cs.fatal_error is not None:
+                    raise AssertionError(f"consensus_net: node {nd.index} halted: {nd.cs.fatal_error!r}")
+            if time.time() > deadline:
+                raise AssertionError(f"consensus_net: heights {[nd.height for nd in nodes]}, waiting for {top}")
+            time.sleep(0.005)
+
+    led = StepLedger("consensus", "net")
+    try:
+        start_net(nodes)
+        ev_height = None
+        for run, mb in NET_RUNS:
+            mb = min_batch if mb is None else mb
+            backend._min_batch = mb
+            h0 = min(nd.height for nd in nodes)
+            c0 = counts()
+            t0 = time.perf_counter()
+            if run == "default":
+                admitted: list = []
+                for tx in txs:
+                    nodes[1].mempool.check_tx_async(tx, cb=admitted.append)
+                h = nodes[0].height
+                ev = DuplicateVoteEvidence.make(
+                    byzantine_signed_vote(privs[3], 3, h, 0, VOTE_TYPE_PREVOTE, make_block_id(b"net-a"), NET_CHAIN),
+                    byzantine_signed_vote(privs[3], 3, h, 0, VOTE_TYPE_PREVOTE, make_block_id(b"net-b"), NET_CHAIN),
+                )
+                if not nodes[0].evidence.add_evidence(ev):
+                    raise AssertionError("consensus_net: node 0's pool refused the evidence")
+                ev_height = h
+            wait_heights(h0 + NET_HEIGHTS)
+            secs = time.perf_counter() - t0
+            deadline = time.time() + NET_TIMEOUT_S
+            while run == "default" and len(admitted) < NET_TXS and time.time() < deadline:
+                time.sleep(0.01)
+            if run == "default" and [r.code for r in admitted] != [0] * NET_TXS:
+                raise AssertionError(f"consensus_net: node 1 admitted {[r.code for r in admitted]}")
+            c1 = counts()
+            c = {k: c1[k] - c0[k] for k in c1}
+            row = {"run": run, "min_device_batch": mb, "from_height": h0, "heights": NET_HEIGHTS, "s": secs,
+                   "heights_per_s": NET_HEIGHTS / secs, "launches": c}
+            backend._min_batch = min_batch
+            if run == "min_batch_0" and (c["ladder"] == 0 or c["madd_chain_entries"] == 0):
+                raise AssertionError(f"consensus_net: at minimum batch 0 the votes and commits launched {c}")
+            rep["runs"].append(row)
+            log({"phase": "consensus_net_run", **row})
+    finally:
+        backend._min_batch = min_batch
+        for nd in nodes:
+            nd.stop()
+        for v in verifiers:
+            v.coalescer.close()
+    sync()
+    rep["launches"] = led.settle()
+    top = min(nd.store.height for nd in nodes)
+    for h in range(1, top + 1):
+        hashes = {nd.store.load_block(h).hash() for nd in nodes}
+        if len(hashes) != 1:
+            raise AssertionError(f"consensus_net: the stores differ at height {h}")
+    for nd in nodes:
+        mine = nd.block_txs(nd.store.height)
+        seen = Counter(mine)
+        if any(seen[tx] != 1 for tx in txs):
+            raise AssertionError(f"consensus_net: node {nd.index} committed the txs {sorted(set(seen.values()))} "
+                                 f"times, {sum(1 for tx in txs if seen[tx] == 0)} never")
+        st = nd.cs.state
+        want = kv_app_hash([[bytes(tx) for tx in nd.store.load_block(h).data.txs]
+                            for h in range(1, st.last_block_height + 1)])
+        if st.app_hash != want:
+            raise AssertionError(f"consensus_net: node {nd.index}'s app hash differs from its txs' at "
+                                 f"height {st.last_block_height}")
+        at = [h for h in range(1, nd.store.height + 1)
+              if any(e.hash() == ev.hash() for e in nd.store.load_block(h).evidence.evidence)]
+        if len(at) != 1 or not ev_height <= at[0] <= ev_height + NET_EVIDENCE_WITHIN:
+            raise AssertionError(f"consensus_net: node {nd.index} committed the evidence of height {ev_height} "
+                                 f"at {at}")
+        rep.setdefault("evidence_heights", []).append(at[0])
+    health.check("consensus_net")
+    rep.update({"top": top, "evidence_from": ev_height})
+    log({"phase": "consensus_net", **{k: v for k, v in rep.items() if k != "runs"}})
+    return rep
+
+
+def run_consensus(stack, inp, sync, n: int) -> dict:
+    """Phase 11: the mempool flood, the storm of `n` validators and the
+    4-validator net on the port's own consensus, on the stack."""
+    return {
+        "mempool": run_consensus_mempool(stack, inp, sync, min(FLOOD_KEYS, len(inp.seeds))),
+        "storm": run_consensus_storm(stack, inp, sync, n),
+        "net": run_consensus_net(stack, inp, sync),
+    }
+
+
 MESH_SHARDS = 4
 MESH_REPS = 3  # timed calls a step, median
 MESH_REPROBE_S = 0.2
@@ -3187,6 +3717,27 @@ def run_sync_only(args) -> dict:
     return report
 
 
+def run_consensus_only(args) -> dict:
+    """`--consensus-only`: phase 0, then phase 11 alone on
+    `default_verifier()` and the keys a full run makes from the same
+    seed."""
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+    from tendermint_tpu_torch.services.verifier import default_verifier
+
+    import torch
+
+    report: dict = {"args": vars(args), "env": environment()}
+    inp = Inputs(args.seed, args.validators)
+    stack = default_verifier()
+    check_layers(stack)
+    try:
+        report["consensus_phase"] = run_consensus(stack, inp, torch.cuda.synchronize, args.validators)
+    finally:
+        stack.close()
+        default_dispatch_queue().close()
+    return report
+
+
 def run(args) -> dict:
     import torch
 
@@ -3347,6 +3898,10 @@ def run(args) -> dict:
 
     # -- phase 10: a fresh node fast-syncs over the port's own network ------
     report["sync"] = run_sync(stack, inp, sync, ns)
+
+    # -- phase 11: the mempool, a 10k-validator storm and a 4-validator net --
+    report["consensus_phase"] = run_consensus(stack, inp, sync, n)
+    close_signers()  # the last phase that signs in bulk
     stack.close()
     default_dispatch_queue().close()
 
@@ -3518,6 +4073,7 @@ def main() -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="phase 0 and the mesh phase alone (for a call on several cards)")
     ap.add_argument("--sync-only", action="store_true", help="phase 0 and the sync phase alone")
+    ap.add_argument("--consensus-only", action="store_true", help="phase 0 and the consensus phase alone")
     args = ap.parse_args()
 
     import torch
@@ -3536,6 +4092,8 @@ def main() -> int:
             report = run_mesh_only(args)
         elif args.sync_only:
             report = run_sync_only(args)
+        elif args.consensus_only:
+            report = run_consensus_only(args)
         else:
             report = run(args)
         report["metrics"] = dump_metrics()
@@ -3546,6 +4104,8 @@ def main() -> int:
         print(f"chip_smoke: flight recorder dumped to {FLIGHT.dump('chip_smoke-failure', dir=str(OUT))}",
               file=sys.stderr)
         return 1
+    finally:
+        close_signers()
     try:
         (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     except OSError:

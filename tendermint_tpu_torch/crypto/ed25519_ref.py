@@ -186,7 +186,9 @@ def _sha512_int(*chunks: bytes) -> int:
     return int.from_bytes(h.digest(), "little")
 
 
-@_functools.lru_cache(maxsize=1024)
+# holds a 10,000-validator set's keys: signing for such a set in tests
+# and in chip_smoke.py would otherwise derive each public key again
+@_functools.lru_cache(maxsize=16384)
 def _expand_seed(seed: bytes) -> tuple[int, bytes, bytes]:
     """Seed -> (clamped scalar a, prefix, pub) per RFC 8032 §5.1.5."""
     h = hashlib.sha512(seed).digest()

@@ -1,7 +1,8 @@
 """Telemetry of the port's device plane: the metric registry and its
 catalog (`metrics.py`), the span tracer and its JSONL span log, trace
-contexts (`tracectx.py`), the flight recorder (`flightrec.py`) and the
-per-launch ledger (`launchlog.py`).
+contexts (`tracectx.py`), the flight recorder (`flightrec.py`), the
+per-launch ledger (`launchlog.py`) and the consensus height ledger
+(`heightlog.py`, exported lazily as `HeightLedger`).
 
 Counterpart of the device-plane pieces of `tendermint_tpu/telemetry/`,
 under the same metric names, label sets, span names, record fields and
@@ -25,6 +26,7 @@ __all__ = [
     "FLIGHT",
     "FlightRecorder",
     "Gauge",
+    "HeightLedger",
     "Histogram",
     "Registry",
     "REGISTRY",
@@ -54,4 +56,8 @@ def __getattr__(name: str):
         from tendermint_tpu_torch.telemetry import tracectx
 
         return tracectx.TraceContext
+    if name == "HeightLedger":
+        from tendermint_tpu_torch.telemetry import heightlog
+
+        return heightlog.HeightLedger
     raise AttributeError(name)

@@ -4,10 +4,10 @@ dispatch launches, breaker transitions, mesh shard faults and restores —
 cheap enough to record unconditionally, that atomically dumps to a
 directory when something breaks or an operator sends `SIGUSR2`.
 
-A dump carries the event ring and the last 32 launch-ledger records
-(`telemetry/launchlog.py`) under the JAX package's dump layout; its
-`heights` list stays empty, since the port has no consensus height
-ledger. Dumps are tmp-file + `os.replace` atomic.
+A dump carries the event ring, the last 32 height-ledger records
+(`telemetry/heightlog.py`) and the last 32 launch-ledger records
+(`telemetry/launchlog.py`) under the JAX package's dump layout. Dumps
+are tmp-file + `os.replace` atomic.
 """
 
 from __future__ import annotations
@@ -83,7 +83,16 @@ class FlightRecorder:
             return None
         try:
             os.makedirs(target, exist_ok=True)
-            heights: list = []  # no height ledger in the port
+            # the last K height-ledger records ride every dump: the
+            # post-mortem's "which heights led into this, and where did
+            # their time go" (telemetry/heightlog.py; lazy import — the
+            # ledger imports the metric catalog, not this module)
+            try:
+                from tendermint_tpu_torch.telemetry import heightlog
+
+                heights = heightlog.recent_records(32)
+            except Exception:
+                heights = []
             # the last K launch records: which launches led into this,
             # and where their time went
             try:

@@ -1,11 +1,15 @@
-"""The port's metric catalog: the series the verify spine exports, under
-the JAX package's names and label sets (`tendermint_tpu/telemetry/metrics.py`),
-registered at import into the port's own `REGISTRY`.
+"""The port's metric catalog: the series the verify spine, the p2p layer,
+consensus, the mempool, the evidence pool and the consensus WAL export,
+under the JAX package's names, label sets and buckets
+(`tendermint_tpu/telemetry/metrics.py`), registered at import into the
+port's own `REGISTRY`.
 
 Label values are low-cardinality by construction: `backend` in {host,
 device, tables, mesh}, `kind` in {verify, hash, tables}, `queue` and
 `consumer` the pipeline owners, `direction` in {shrink, restore},
-`result` in {hit, miss}, `state` in {useful, padded, cached}, `mode` in
+`result` in {hit, miss} (the mempool's in {ok, rejected, duplicate,
+bad_sig, flushed}), `phase` the round and height-lifecycle phases,
+`reason` the flush and pipeline-stall vocabularies, `state` in {useful, padded, cached}, `mode` in
 {sequential, bisect}, `stage` the dispatch-handle stages, `lock` the
 ranked-lock names of `utils/lockrank.py`; the p2p, gossip and link
 families take the fixed offense, channel, message-kind and delivery
@@ -20,6 +24,187 @@ from tendermint_tpu_torch.telemetry.registry import (
     Counter,
     Gauge,
     Histogram,
+)
+
+# -- consensus ----------------------------------------------------------------
+
+CONSENSUS_HEIGHT = Gauge(
+    "tendermint_consensus_height", "Current consensus height"
+)
+CONSENSUS_ROUND = Gauge(
+    "tendermint_consensus_round", "Current consensus round"
+)
+CONSENSUS_PHASE_SECONDS = Histogram(
+    "tendermint_consensus_phase_seconds",
+    "Wall time spent in each round phase (propose/prevote/precommit/commit)",
+    labelnames=("phase",),
+    buckets=LATENCY_BUCKETS,
+)
+CONSENSUS_HEIGHT_SECONDS = Histogram(
+    "tendermint_consensus_height_seconds",
+    "Wall time from entering a height to finalizing its commit",
+    buckets=LATENCY_BUCKETS,
+)
+CONSENSUS_COMMITS = Counter(
+    "tendermint_consensus_commits_total", "Blocks finalized by this node"
+)
+CONSENSUS_TXS_COMMITTED = Counter(
+    "tendermint_consensus_txs_committed_total", "Txs in blocks finalized by this node"
+)
+CONSENSUS_ROUND_SKIPS = Counter(
+    "tendermint_consensus_round_skips_total",
+    "Round-skip timeouts fired while starved at PREVOTE/PRECOMMIT",
+    labelnames=("phase",),
+)
+VOTE_DRAIN_BATCH = Histogram(
+    "tendermint_consensus_vote_drain_batch_size",
+    "Consecutive same-(height,round,type) votes drained per receive-loop turn",
+    buckets=SIZE_BUCKETS,
+)
+
+# -- finality observatory (telemetry/heightlog.py, consensus/state.py) --------
+#
+# `phase` is the fixed height lifecycle: new_height (commit timeout +
+# waiting for round 0), propose, prevote, precommit, commit (waiting
+# for the committed block, pre-apply), apply (ABCI + state update) —
+# summed across rounds of one height, so the per-height phase set
+# always sums to ~the commit-to-commit gap.
+
+FINALITY_SECONDS = Histogram(
+    "tendermint_finality_seconds",
+    "Commit-to-commit gap: wall time between consecutive finalized "
+    "commits on this node (the user-facing finality latency)",
+    buckets=LATENCY_BUCKETS,
+)
+HEIGHT_PHASE_SECONDS = Histogram(
+    "tendermint_height_phase_seconds",
+    "Per-height time in each lifecycle phase (summed across rounds), "
+    "from the HeightLedger record assembled at finalize",
+    labelnames=("phase",),
+    buckets=LATENCY_BUCKETS,
+)
+VOTE_ARRIVAL_SECONDS = Histogram(
+    "tendermint_consensus_vote_arrival_seconds",
+    "Vote timestamp to local arrival, aggregated over all peers "
+    "(per-peer rollup lives in dump_telemetry; clock-skew clamped)",
+    buckets=LATENCY_BUCKETS,
+)
+VOTE_ARRIVAL_MAX = Gauge(
+    "tendermint_consensus_vote_arrival_max_seconds",
+    "Worst single vote-arrival delay observed in the last finalized "
+    "height (the laggard-validator signal)",
+)
+
+# -- cross-height pipeline (consensus/state.py pipelined finalize) ------------
+#
+# `reason` is the fixed join-barrier vocabulary: propose (proposer
+# needed the applied app_hash/mempool), prevote (validate_block against
+# applied state), vote_tally (H+1 vote needed the post-EndBlock
+# valset), shutdown (stop() drained the pipeline), fault (the apply
+# itself failed — the pipeline drains and consensus halts). A stall is
+# a join that actually blocked H+1 progress; instant joins and the
+# receive loop's opportunistic idle-joins (nothing queued — blocking
+# delays nothing) don't count.
+
+APPLY_OVERLAP_SECONDS = Histogram(
+    "tendermint_consensus_apply_overlap_seconds",
+    "Share of height H's ABCI apply + state advance that ran "
+    "concurrently with H+1's NewHeight/Propose (pipelined finalize; "
+    "0 on the serial path)",
+    buckets=LATENCY_BUCKETS,
+)
+PIPELINE_STALLS = Counter(
+    "tendermint_consensus_pipeline_stalls_total",
+    "Join-barrier waits that actually blocked H+1 progress on H's "
+    "in-flight apply, by the barrier that stalled",
+    labelnames=("reason",),
+)
+CONSENSUS_TIMEOUT_DERIVED = Gauge(
+    "tendermint_consensus_timeout_derived_seconds",
+    "Current measured-latency-derived timeout per phase (clamped to "
+    "the configured fixed value; absent while cold-starting on the "
+    "fixed ladder)",
+    labelnames=("phase",),
+)
+
+# -- per-vote and per-tx lifecycle (consensus/state.py, mempool/mempool.py) --
+#
+# `stage` is a fixed per-vote lifecycle slice: "drain" (gossip arrival
+# -> drained into a batch), "verify" (batch submit -> verdict join),
+# "e2e" (arrival -> verdict applied). Histograms carry exemplar trace
+# ids (JSON dump only) so an aggregate links back to one traced message.
+
+TX_E2E = Histogram(
+    "tendermint_tx_e2e_seconds",
+    "Tx first-seen (CheckTx admission) to committed in a finalized block",
+    buckets=LATENCY_BUCKETS,
+)
+VOTE_STAGE = Histogram(
+    "tendermint_vote_stage_seconds",
+    "Traced-vote lifecycle slices (drain/verify/e2e) on this node",
+    labelnames=("stage",),
+    buckets=LATENCY_BUCKETS,
+)
+
+# -- evidence -----------------------------------------------------------------
+
+EVIDENCE_POOL_DEPTH = Gauge(
+    "tendermint_evidence_pool_depth",
+    "Verified misbehavior proofs pending commitment into a block",
+)
+EVIDENCE_COMMITTED = Counter(
+    "tendermint_evidence_committed_total",
+    "Evidence retired from the pool by block commitment",
+)
+EVIDENCE_EXPIRED = Counter(
+    "tendermint_evidence_expired_total",
+    "Pending evidence pruned past the ConsensusParams max-age window",
+)
+
+# -- mempool ------------------------------------------------------------------
+#
+# `result` outcomes are fixed: ok / rejected (app said no) / duplicate
+# (dup-cache hit) / bad_sig (signed-envelope verify failed) / flushed
+# (operator flush invalidated an in-flight admission). Ingress `reason`
+# mirrors the coalescer's flush triggers (window/size/barrier).
+
+MEMPOOL_SIZE = Gauge("tendermint_mempool_size", "Pending txs in the mempool")
+MEMPOOL_TXS = Counter(
+    "tendermint_mempool_txs_total",
+    "CheckTx outcomes (ok/rejected/duplicate/bad_sig/flushed)",
+    labelnames=("result",),
+)
+MEMPOOL_ADMISSION_SECONDS = Histogram(
+    "tendermint_mempool_admission_seconds",
+    "CheckTx arrival to admission verdict (ingress queue + verify window "
+    "+ app check); exemplar-linked to the admitted tx's trace id",
+    buckets=LATENCY_BUCKETS,
+)
+MEMPOOL_INGRESS_WINDOW = Histogram(
+    "tendermint_mempool_ingress_window_txs",
+    "Txs merged per ingress verify window",
+    buckets=SIZE_BUCKETS,
+)
+MEMPOOL_INGRESS_FLUSH = Counter(
+    "tendermint_mempool_ingress_flush_total",
+    "Ingress window flushes by trigger (window/size/barrier)",
+    labelnames=("reason",),
+)
+
+for _reason in ("window", "size", "barrier"):
+    MEMPOOL_INGRESS_FLUSH.labels(reason=_reason).inc(0)
+for _result in ("ok", "rejected", "duplicate", "bad_sig", "flushed"):
+    MEMPOOL_TXS.labels(result=_result).inc(0)
+
+# -- consensus WAL ------------------------------------------------------------
+
+WAL_FSYNC_SECONDS = Histogram(
+    "tendermint_wal_fsync_seconds",
+    "Consensus WAL write+fsync latency per record",
+    buckets=LATENCY_BUCKETS,
+)
+WAL_WRITTEN_BYTES = Counter(
+    "tendermint_wal_written_bytes_total", "Framed bytes appended to the consensus WAL"
 )
 
 # -- device dispatch (verify / hash hot paths) --------------------------------
@@ -225,7 +410,18 @@ TRACE_DROPPED = Counter(
 # The span-name catalog: every literal the port passes to TRACER.add()
 # or TRACER.span() (tests/test_torch_telemetry.py holds the port's
 # sources to it).
-SPAN_CATALOG = frozenset({"batcher.flush", "dispatch.launch", "p2p.hop"})
+SPAN_CATALOG = frozenset(
+    {
+        "batcher.flush",
+        "consensus.height",
+        "dispatch.launch",
+        "mempool.admission",
+        "mempool.window",
+        "p2p.hop",
+        "tx.e2e",
+        "vote.e2e",
+    }
+)
 
 # -- lock contention (utils/lockrank.py) ---------------------------------------
 #
@@ -411,6 +607,8 @@ LINK_INFLIGHT = Gauge(
 # any instance or event.
 for _kind in ("verify", "hash", "tables"):
     BREAKER_STATE.labels(kind=_kind).set(0)
+for _phase in ("prevote", "precommit"):
+    CONSENSUS_ROUND_SKIPS.labels(phase=_phase).inc(0)
 for _reason in ("window", "size", "barrier"):
     BATCHER_FLUSH.labels(reason=_reason).inc(0)
 for _direction in ("shrink", "restore"):
@@ -423,6 +621,14 @@ for _kind in ("verify", "hash", "tables", "leaf_hashes"):
         LAUNCH_ROWS.labels(kind=_kind, state=_state).inc(0)
 for _stage in ("queue_wait", "host_prep", "in_flight", "finalize"):
     LAUNCH_STAGE_SECONDS.labels(stage=_stage)
+for _stage in ("drain", "verify", "e2e"):
+    VOTE_STAGE.labels(stage=_stage)
+for _phase in ("new_height", "propose", "prevote", "precommit", "commit", "apply"):
+    HEIGHT_PHASE_SECONDS.labels(phase=_phase)
+for _reason in ("propose", "prevote", "vote_tally", "shutdown", "fault"):
+    PIPELINE_STALLS.labels(reason=_reason).inc(0)
+for _phase in ("propose", "prevote", "precommit", "commit"):
+    CONSENSUS_TIMEOUT_DERIVED.labels(phase=_phase)
 for _mode in ("sequential", "bisect"):
     LIGHTCLIENT_WALK_SECONDS.labels(mode=_mode)
 for _kind in (

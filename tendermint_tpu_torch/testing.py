@@ -130,6 +130,30 @@ def ledger_launches(records) -> dict:
     return out
 
 
+def device_flat_rows(records, lanes, min_batch: int, what: str = "run") -> dict:
+    """Holds the flat calls among a run's launch-ledger records (kind
+    `verify`) to the lanes the run sent them: `lanes` has one count a
+    drained vote run or ingress window. Every lane of a run or window of
+    `min_batch` lanes or more must be a row a device answered, unless the
+    signature cache withheld it (`rows_cached`); the coalescer may merge
+    runs, so rows are compared, not calls. Raises AssertionError on a
+    shortfall, or on a flat record of `min_batch` rows or more that the
+    host answered; returns the account."""
+    flat = [r for r in records if r.get("kind") == "verify" and not r.get("error")]
+    device = [int(r.get("rows", 0)) for r in flat if r.get("backend", "host") != "host"]
+    host_big = [int(r.get("rows", 0)) for r in flat
+                if r.get("backend", "host") == "host" and int(r.get("rows", 0)) >= min_batch]
+    cached = sum(int(r.get("rows_cached", 0)) for r in flat)
+    big = sum(n for n in lanes if n >= min_batch)
+    if sum(device) < big - cached or host_big:
+        raise AssertionError(
+            f"{what}: the device answered {sum(device)} flat rows ({device}), the runs of {min_batch} "
+            f"lanes or more sent {big} ({cached} from the cache); the host answered flat calls of {host_big}"
+        )
+    return {"device_flat_calls": len(device), "device_flat_rows": sum(device), "device_flat_sizes": device,
+            "lanes_of_min_batch_or_more": big, "rows_cached": cached}
+
+
 def kernel_launches(counts: dict) -> dict:
     """The kernel wrappers' launch counts (`{wrapper name: launches}`)
     grouped as `ledger_launches` groups the records."""
@@ -180,6 +204,16 @@ def signed_vote(priv, index, height, round_, type_, block_id, chain_id=TEST_CHAI
                 timestamp=timestamp if timestamp is not None else time.time_ns(), type=type_,
                 block_id=block_id)
     return priv.sign_vote(chain_id, vote)
+
+
+def byzantine_signed_vote(priv, index, height, round_, type_, block_id, chain_id=TEST_CHAIN_ID, timestamp=1000):
+    """A vote signed around `priv`'s double-sign guard: the Byzantine
+    validator of the tests (the reference's ByzantinePrivValidator)."""
+    from tendermint_tpu_torch.types import Vote
+
+    vote = Vote(validator_address=priv.address, validator_index=index, height=height, round=round_,
+                timestamp=timestamp, type=type_, block_id=block_id)
+    return vote.with_signature(priv._signer.sign(vote.sign_bytes(chain_id)))
 
 
 def make_commit(val_set, privs, height, round_, block_id, verifier, chain_id=TEST_CHAIN_ID):
@@ -406,3 +440,231 @@ def forge_newest_precommit(sim, index: int) -> None:
     precommits = list(commit.precommits)
     precommits[index] = vote.with_signature(bytes([sig[0] ^ 0x01]) + sig[1:])
     sim.commits[-1] = dataclasses.replace(commit, precommits=precommits)
+
+
+# -- consensus fixtures: a validator whose set the caller plays, a small net ----
+
+
+class StormValidator:
+    """One port `ConsensusState` as a validator of a set whose other
+    validators the caller plays: the harness of the JAX package's
+    `tests/test_consensus.py` vote storm and `tests/test_pol_safety.py`
+    proposals, at any width. The node runs `KVStoreApp`, a port `Mempool`
+    and `EvidencePool` and a `BlockStore(MemDB())` on `verifier`,
+    `ConsensusConfig.test_config()` and `MockTicker` (only height starts
+    fire: a round moves on messages alone). `seeds` maps each validator's
+    address to its 32-byte key seed; `sign_many(pairs)` signs a list of
+    (seed, message) pairs for the validators the caller plays (a
+    height's votes of one type in one call), and the node signs with its own
+    `PrivValidator`. Each drained vote run's length lands in `drains`
+    and its lanes (the votes not self-signed) in `drain_lanes`, each
+    finalized block in `commits` as (perf_counter time, block)."""
+
+    def __init__(self, genesis, seeds, node_address, sign_many, verifier, hasher=None, wal_path=None):
+        import queue
+        import time
+
+        from tendermint_tpu_torch.abci.apps import KVStoreApp
+        from tendermint_tpu_torch.abci.client import local_client_creator
+        from tendermint_tpu_torch.blockchain.store import BlockStore
+        from tendermint_tpu_torch.consensus import ConsensusConfig, ConsensusState, MockTicker
+        from tendermint_tpu_torch.crypto import PrivKey
+        from tendermint_tpu_torch.db.kv import MemDB
+        from tendermint_tpu_torch.evidence import EvidencePool
+        from tendermint_tpu_torch.mempool import Mempool
+        from tendermint_tpu_torch.state import make_genesis_state
+        from tendermint_tpu_torch.types import PrivValidator
+        from tendermint_tpu_torch.types import events as ev
+
+        self.chain_id = genesis.chain_id
+        self.seeds, self.sign_many, self.hasher, self.address = seeds, sign_many, hasher, node_address
+        state = make_genesis_state(MemDB(), genesis)
+        state.save()
+        self.app = KVStoreApp()
+        conns = local_client_creator(self.app)()
+        self.store = BlockStore(MemDB())
+        self.mempool = Mempool(conns.mempool, verifier=verifier)
+        self.evidence = EvidencePool(params=state.consensus_params.evidence, verifier=verifier,
+                                     chain_id=self.chain_id)
+        self.cs = ConsensusState(
+            config=ConsensusConfig.test_config(), state=state, app_conn=conns.consensus,
+            block_store=self.store, mempool=self.mempool,
+            priv_validator=PrivValidator(PrivKey(seeds[node_address])), wal_path=wal_path,
+            ticker=MockTicker(), verifier=verifier, hasher=hasher, evidence_pool=self.evidence,
+        )
+        self.commits: "queue.Queue" = queue.Queue()
+        self.committed: list[int] = []
+
+        def on_block(data):
+            self.committed.append(data.block.header.height)
+            self.commits.put((time.perf_counter(), data.block))
+
+        self.cs.event_switch.add_listener("storm", ev.EVENT_NEW_BLOCK, on_block)
+        self.drains: list[int] = []
+        self.drain_lanes: list[int] = []
+        submit = self.cs._submit_vote_batch
+
+        def drained(records):
+            self.drains.append(len(records))
+            self.drain_lanes.append(sum(1 for rec in records if not rec.self_signed))
+            return submit(records)
+
+        self.cs._submit_vote_batch = drained
+
+    def _wait(self, pred, what: str, timeout: float) -> None:
+        import time
+
+        deadline = time.time() + timeout
+        while not pred():
+            if self.cs.fatal_error is not None:
+                raise AssertionError(f"consensus halted waiting for {what}: {self.cs.fatal_error!r}")
+            if time.time() > deadline:
+                raise AssertionError(f"timed out waiting for {what}")
+            time.sleep(0.005)
+
+    def propose(self, height: int, txs=(), timeout: float = 60.0):
+        """Round 0 of `height`, once the node has applied `height - 1`:
+        (block_id, block, proposal, parts). When the node proposes, waits
+        for its complete block (proposal and parts None); else builds the
+        proposer's block on the node's applied state, with the node's seen
+        commit of the height below as the last commit (what a proposer that
+        gathered the same precommits carries), and signs its proposal,
+        unsent."""
+        import time
+
+        from tendermint_tpu_torch.types import Block, BlockID, Commit, PartSetHeader, Proposal, Txs
+
+        cs = self.cs
+        self._wait(lambda: cs.height == height and (height == 1 or height - 1 in self.committed),
+                   f"height {height}", timeout)
+        proposer = cs.validators.proposer.address
+        if proposer == self.address:
+            def complete():
+                rs = cs.get_round_state()
+                return rs.height == height and rs.proposal_block is not None
+
+            self._wait(complete, f"the node's proposal at height {height}", timeout)
+            rs = cs.get_round_state()
+            return BlockID(rs.proposal_block.hash(), rs.proposal_block_parts.header), rs.proposal_block, None, None
+        st = cs.state
+        block = Block.make_block(
+            height=height, chain_id=self.chain_id, txs=Txs(list(txs)),
+            last_commit=Commit.empty() if height == 1 else self.store.load_seen_commit(height - 1),
+            last_block_id=st.last_block_id, time=time.time_ns(), validators_hash=st.validators.hash(),
+            app_hash=st.app_hash, hasher=self.hasher,
+        )
+        parts = block.make_part_set(hasher=self.hasher)
+        prop = Proposal(height=height, round=0, block_parts_header=parts.header, pol_round=-1,
+                        pol_block_id=BlockID(b"", PartSetHeader.zero()), timestamp=time.time_ns())
+        prop = prop.with_signature(self.sign_many([(self.seeds[proposer], prop.sign_bytes(self.chain_id))])[0])
+        return BlockID(block.hash(), parts.header), block, prop, parts
+
+    def votes(self, height: int, type_: int, block_id, timestamp: int) -> list:
+        """Every validator's round-0 vote but the node's, signed, in the
+        set's order."""
+        from tendermint_tpu_torch.types import Vote
+
+        votes = [Vote(val.address, idx, height, 0, timestamp, type_, block_id)
+                 for idx, val in enumerate(self.cs.validators.validators) if val.address != self.address]
+        sigs = self.sign_many([(self.seeds[v.validator_address], v.sign_bytes(self.chain_id)) for v in votes])
+        return [v.with_signature(sig) for v, sig in zip(votes, sigs)]
+
+    def play(self, proposal, parts, prevotes, precommits, timeout: float = 120.0) -> float:
+        """Queue the proposal and its parts (when the caller proposes) and
+        `prevotes` as one backlog, then, once the node has precommitted
+        (its own vote queues behind the backlog, as a node's own vote
+        queues behind its peers' in a storm), `precommits` as one backlog;
+        returns the perf_counter time of the first message."""
+        import time
+
+        t0 = time.perf_counter()
+        height = prevotes[0].height
+        if proposal is not None:
+            self.cs.set_proposal(proposal, peer_id="storm")
+            for i in range(parts.total):
+                self.cs.add_proposal_block_part(proposal.height, 0, parts.get_part(i), peer_id="storm")
+        for v in prevotes:
+            self.cs.add_vote(v, peer_id=f"val{v.validator_index}")
+
+        def precommitted():
+            votes = self.cs.votes
+            pcs = votes.precommits(0) if votes is not None and self.cs.height == height else None
+            return pcs is not None and pcs.get_by_address(self.address) is not None
+
+        self._wait(precommitted, f"the node's precommit at height {height}", timeout)
+        for v in precommits:
+            self.cs.add_vote(v, peer_id=f"val{v.validator_index}")
+        return t0
+
+    def wait_commit(self, height: int, timeout: float = 120.0):
+        """(perf_counter time, block) of the node's commit of `height`,
+        once its apply has joined."""
+        while True:
+            self._wait(lambda: not self.commits.empty(), f"the commit of height {height}", timeout)
+            t, block = self.commits.get()
+            if block.header.height == height:
+                return t, block
+
+
+class NetValidator:
+    """One validator of an in-process net: a port `ConsensusState` with
+    its `ConsensusReactor`, `MempoolReactor` and `EvidenceReactor` on a
+    port `Switch` (the node's wiring, `node/node.py` of the JAX package),
+    `KVStoreApp`, a `BlockStore(MemDB())`, the real `TimeoutTicker` and
+    `ConsensusConfig.test_config()`; `verifier` and `hasher` are shared
+    by the consensus, the mempool and the evidence pool."""
+
+    def __init__(self, index: int, genesis, privs, verifier, hasher=None, config=None):
+        from tendermint_tpu_torch.abci.apps import KVStoreApp
+        from tendermint_tpu_torch.abci.client import local_client_creator
+        from tendermint_tpu_torch.blockchain.store import BlockStore
+        from tendermint_tpu_torch.consensus import ConsensusConfig, ConsensusState, TimeoutTicker
+        from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+        from tendermint_tpu_torch.db.kv import MemDB
+        from tendermint_tpu_torch.evidence import EvidencePool, EvidenceReactor
+        from tendermint_tpu_torch.mempool import Mempool
+        from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+        from tendermint_tpu_torch.p2p import NodeInfo, Switch
+        from tendermint_tpu_torch.state import make_genesis_state
+
+        self.index = index
+        state = make_genesis_state(MemDB(), genesis)
+        state.save()
+        self.app = KVStoreApp()
+        conns = local_client_creator(self.app)()
+        self.store = BlockStore(MemDB())
+        self.mempool = Mempool(conns.mempool, verifier=verifier)
+        self.evidence = EvidencePool(params=state.consensus_params.evidence, verifier=verifier,
+                                     chain_id=genesis.chain_id)
+        self.cs = ConsensusState(
+            config=config or ConsensusConfig.test_config(), state=state, app_conn=conns.consensus,
+            block_store=self.store, mempool=self.mempool, priv_validator=privs[index],
+            ticker=TimeoutTicker(), verifier=verifier, hasher=hasher, evidence_pool=self.evidence,
+        )
+        self.switch = Switch(NodeInfo(node_id=f"node{index}", moniker=f"val{index}", chain_id=genesis.chain_id))
+        self.switch.add_reactor("consensus", ConsensusReactor(self.cs))
+        self.switch.add_reactor("mempool", MempoolReactor(self.mempool))
+        self.switch.add_reactor("evidence", EvidenceReactor(self.evidence))
+
+    @property
+    def height(self) -> int:
+        return self.cs.height
+
+    def block_txs(self, top: int) -> list[bytes]:
+        return [bytes(tx) for h in range(1, top + 1) for tx in self.store.load_block(h).data.txs]
+
+    def stop(self) -> None:
+        self.switch.stop()
+        self.mempool.close()
+        self.evidence.close()
+
+
+def start_net(nodes) -> None:
+    """Start every node's switch, then link each pair in process."""
+    from tendermint_tpu_torch.p2p import connect_switches
+
+    for node in nodes:
+        node.switch.start()
+    for i in range(len(nodes)):
+        for j in range(i + 1, len(nodes)):
+            connect_switches(nodes[i].switch, nodes[j].switch)

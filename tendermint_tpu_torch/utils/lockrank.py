@@ -59,6 +59,19 @@ import traceback
 # Ascending rank == legal acquisition order; the rows the port builds,
 # with the JAX package's ranks (gaps leave room for new locks).
 RANKS: dict[str, int] = {
+    # consensus holds its big lock across mempool/evidence/dispatch work,
+    # so it is the lowest-ranked lock in the process.
+    "consensus.state": 10,  # ConsensusState._mtx
+    "evidence.pool": 20,  # EvidencePool._lock
+    # mempool: _avail -> lanes -> wal -> counter
+    "mempool.avail": 30,  # Mempool._avail's Condition lock
+    "mempool.ingress": 35,  # IngressBatcher._cond's lock
+    "mempool.lane": 40,  # _Lane.lock (seq = lane index)
+    "mempool.txcache": 44,  # TxCache._lock (under lanes via recheck/flush)
+    "mempool.wal": 48,  # Mempool._wal_lock
+    "mempool.counter": 52,  # Mempool._counter_lock
+    "mempool.notif": 56,  # Mempool._notif_lock (under all lanes in update())
+    "mempool.trace": 60,  # Mempool._trace_lock
     "dispatch.handle": 64,  # VerifyHandle/ChainedHandle._lock
     "batcher.shard": 68,  # VerifiedSigCache shard locks (seq = shard index)
     "batcher.window": 72,  # VerifyCoalescer._cond's lock

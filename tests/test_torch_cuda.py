@@ -787,3 +787,89 @@ def test_port_reactor_fast_syncs_windows_on_the_card(dev, monkeypatch):
         assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
     finally:
         stack.close()
+
+
+STORM_VALIDATORS = 1000
+
+
+def test_port_validator_commits_a_storm_on_the_card(dev, monkeypatch, tmp_path):
+    """The port's own consensus on the card's stack (the default minimum
+    batch): a `ConsensusState` is one validator of 1,000 at equal power
+    (`testing.StormValidator`: the port's mempool, evidence pool, a WAL,
+    `MockTicker`), and the test plays the other 999 for one height, its
+    prevotes and precommits each as one backlog through `add_vote` (the
+    harness of the JAX package's `tests/test_consensus.py` storm). The
+    height commits the proposed block, each vote run of 512 or more is a
+    `ladder` launch, and the next height's proposal carries the 1,000
+    precommits as its last commit, which `validate_block` verifies with
+    one `madd_chain_entries` launch before the node prevotes it."""
+    import time
+
+    from tendermint_tpu_torch.crypto import PubKey
+    from tendermint_tpu_torch.services import verifier as V
+    from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
+    from tendermint_tpu_torch.testing import StormValidator, device_flat_rows
+    from tendermint_tpu_torch.types import (
+        VOTE_TYPE_PRECOMMIT, VOTE_TYPE_PREVOTE, GenesisDoc, GenesisValidator,
+    )
+
+    monkeypatch.setattr(V, "_DEFAULTS", {})
+    stack = V.default_verifier(dev)
+    n = STORM_VALIDATORS
+    rng = np.random.default_rng(71)
+    seeds = [rng.bytes(32) for _ in range(n)]
+    pubs = [PubKey(ed25519_ref.public_from_seed(s)) for s in seeds]
+    gen = GenesisDoc(chain_id="storm-chain", genesis_time=1_760_000_000_000_000_000,
+                     validators=[GenesisValidator(pub_key=p, power=10) for p in pubs])
+    sv = StormValidator(gen, {p.address: s for p, s in zip(pubs, seeds)}, pubs[0].address,
+                        lambda pairs: [ed25519_ref.sign(seed, msg) for seed, msg in pairs],
+                        stack, wal_path=str(tmp_path / "cs.wal"))
+
+    def counts():
+        return TL.ladder.launches, TT.sum_entries.launches, TT.finish_encode_compare.launches
+
+    before = counts()
+    t_start = time.time()
+    sv.cs.start()
+    try:
+        bid, _block, prop, parts = sv.propose(1, [b"storm-%d=%d" % (i, i) for i in range(16)])
+        ts = time.time_ns()
+        sv.play(prop, parts, sv.votes(1, VOTE_TYPE_PREVOTE, bid, ts), sv.votes(1, VOTE_TYPE_PRECOMMIT, bid, ts))
+        _t, committed = sv.wait_commit(1)
+        assert committed.hash() == bid.hash == sv.store.load_block(1).hash()
+        mb = stack.inner.primary._min_batch
+        assert len([n for n in sv.drain_lanes if n >= mb]) >= 2
+        ladder, entries, _finish = (b - a for a, b in zip(before, counts()))
+        assert ladder >= 1 and entries == 0
+        bid2, _block2, prop2, parts2 = sv.propose(2, [b"next=1"])
+        if prop2 is not None:
+            sv.cs.set_proposal(prop2, peer_id="storm")
+            for i in range(parts2.total):
+                sv.cs.add_proposal_block_part(2, 0, parts2.get_part(i), peer_id="storm")
+
+        def prevoted():
+            pvs = sv.cs.votes.prevotes(0) if sv.cs.height == 2 else None
+            pv = pvs.get_by_address(sv.address) if pvs is not None else None
+            return pv is not None and pv.block_id == bid2
+
+        sv._wait(prevoted, "the node's prevote for height 2", 120)
+    finally:
+        sv.cs.stop()
+        sv.mempool.close()
+        sv.evidence.close()
+    # every lane of a drained run of the minimum batch or more was a row
+    # of a flat call the card answered, once each record has joined
+    deadline = time.time() + 10
+    while True:
+        recs = [r for r in LAUNCHLOG.recent() if r.get("t", 0) >= t_start]
+        ladder, entries, finish = (b - a for a, b in zip(before, counts()))
+        rows = device_flat_rows(recs, [], mb)
+        if rows["device_flat_calls"] == ladder or time.time() > deadline:
+            break
+        time.sleep(0.01)
+    rows = device_flat_rows(recs, sv.drain_lanes, mb, "the storm")
+    assert rows["device_flat_calls"] == ladder
+    assert entries == 1 and finish == ladder + entries
+    snap = stack.inner.snapshot()
+    assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
+    stack.close()

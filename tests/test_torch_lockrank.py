@@ -61,6 +61,9 @@ def test_rank_table_matches_the_jax_package():
     """Every lock the port builds carries the JAX package's rank."""
     assert lockrank.RANKS == {k: J_lockrank.RANKS[k] for k in lockrank.RANKS}
     assert set(lockrank.RANKS) == {
+        "consensus.state", "evidence.pool",
+        "mempool.avail", "mempool.ingress", "mempool.lane", "mempool.txcache",
+        "mempool.wal", "mempool.counter", "mempool.notif", "mempool.trace",
         "dispatch.handle", "batcher.shard", "batcher.window",
         "dispatch.worker", "dispatch.state", "dispatch.global",
         "p2p.switch", "p2p.scorer", "p2p.conn.write", "p2p.flowrate",

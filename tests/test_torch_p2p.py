@@ -6,9 +6,10 @@ the multiplexed connection, keepalive, the switch), `test_peer_score.py`
 (scores, bans, a malformed or oversize frame dropping only its sender),
 `test_gossiplog.py` (the rollup's bounds, the golden bytes, a sampled-out
 switch) and `test_log_flowrate.py`. The cases that need modules the port
-does not carry yet (the node's persistent-peer matching, consensus'
-`HeightVoteSet`, the other reactors' channel constants) wait for those
-slices; the gossip tables are held to the JAX package's instead.
+does not carry yet (the node's persistent-peer matching, the light-client,
+state-sync and pex reactors' channel constants) wait for those slices;
+the gossip tables are held to the JAX package's and to the port's
+blockchain, consensus, mempool and evidence reactors.
 
 Across the packages: the wire forms are byte-equal (`NodeInfo`, frames
 with and without a trace block), and a JAX `Switch` and a port `Switch`
@@ -509,6 +510,22 @@ class TestVoteSetClaimBounds:
             vs.set_peer_maj23(f"flooder{i}", BlockID(i.to_bytes(20, "big"), PartSetHeader.zero()))
         assert len(vs.votes_by_block) <= VoteSet.MAX_PEER_CLAIMS + 1
 
+    def test_height_vote_set_refuses_round_claim_flood(self):
+        from tendermint_tpu_torch.consensus.round_state import HeightVoteSet
+        from tendermint_tpu_torch.testing import make_validators
+        from tendermint_tpu_torch.types.block_id import BlockID
+        from tendermint_tpu_torch.types.part_set import PartSetHeader
+        from tendermint_tpu_torch.types.vote import VOTE_TYPE_PREVOTE
+
+        vals, _ = make_validators(4)
+        hvs = HeightVoteSet(SCORE_CHAIN, 1, vals)
+        bid = BlockID(b"\x01" * 20, PartSetHeader.zero())
+        for r in range(2, 500):
+            hvs.set_peer_maj23(r, VOTE_TYPE_PREVOTE, "flooder", bid)
+        # 1 base round pair + round 1 (catchup window) + 2 per-peer
+        # catchup rounds: far below the 500 a flood asked for
+        assert len(hvs._round_vote_sets) <= 6
+
 
 # -- tests/test_gossiplog.py --------------------------------------------------------
 
@@ -535,6 +552,42 @@ class TestKindTablesMatchReactors:
             bc._MSG_STATUS_RESPONSE: "status_response",
         }
         assert KIND_TAGS[conn.CTRL_CHANNEL] == {conn._PING[0]: "ping", conn._PONG[0]: "pong"}
+
+    def test_consensus_mempool_evidence_reactors_match(self):
+        """The JAX cross-checks of the tables against the consensus,
+        mempool and evidence reactors, on the port's reactors."""
+        import tendermint_tpu_torch.consensus.reactor as cns
+        import tendermint_tpu_torch.evidence.reactor as evr
+        import tendermint_tpu_torch.mempool.reactor as mp
+
+        names = {
+            cns.STATE_CHANNEL: "cns_state",
+            cns.DATA_CHANNEL: "cns_data",
+            cns.VOTE_CHANNEL: "cns_vote",
+            cns.VOTE_SET_BITS_CHANNEL: "cns_votebits",
+            mp.MEMPOOL_CHANNEL: "mempool",
+            evr.EVIDENCE_CHANNEL: "evidence",
+        }
+        assert {ch: CHANNEL_NAMES[ch] for ch in names} == names
+        tags = {
+            cns.STATE_CHANNEL: {
+                cns._MSG_NEW_ROUND_STEP: "new_round_step",
+                cns._MSG_COMMIT_STEP: "commit_step",
+                cns._MSG_HAS_VOTE: "has_vote",
+                cns._MSG_VOTE_SET_MAJ23: "vote_set_maj23",
+                cns._MSG_PROPOSAL_HEARTBEAT: "proposal_heartbeat",
+            },
+            cns.DATA_CHANNEL: {
+                cns._MSG_PROPOSAL: "proposal",
+                cns._MSG_PROPOSAL_POL: "proposal_pol",
+                cns._MSG_BLOCK_PART: "block_part",
+            },
+            cns.VOTE_CHANNEL: {cns._MSG_VOTE: "vote"},
+            cns.VOTE_SET_BITS_CHANNEL: {cns._MSG_VOTE_SET_BITS: "vote_set_bits"},
+            mp.MEMPOOL_CHANNEL: {mp._MSG_TX: "tx"},
+            evr.EVIDENCE_CHANNEL: {evr._MSG_EVIDENCE_LIST: "evidence_list"},
+        }
+        assert {ch: KIND_TAGS[ch] for ch in tags} == tags
 
     def test_kind_vocabulary_is_cataloged(self):
         from tendermint_tpu_torch.telemetry.metrics import GOSSIP_CHANNELS, GOSSIP_KINDS

@@ -1,8 +1,8 @@
 """The port's telemetry sinks against the JAX package's, on the CPU: the
 registry's Prometheus text and JSON dump for the same families and
 observations; trace contexts across the two wire codecs; the span log's
-JSONL ring; the flight recorder's dump (its fields and embedded launch
-records) for the same event sequence; `SIGUSR2` dumping the black box of
+JSONL ring; the flight recorder's dump (its fields and embedded height
+and launch records) for the same event sequence; `SIGUSR2` dumping the black box of
 a live process; and the span-name catalog over the port's sources.
 Tolerance: exact, except for wall-clock fields (`t`, `dumped_at`)."""
 
@@ -22,10 +22,11 @@ import pytest
 
 from tendermint_tpu.codec.binary import Reader as J_Reader
 from tendermint_tpu.telemetry import flightrec as J_flightrec
+from tendermint_tpu.telemetry import heightlog as J_heightlog
 from tendermint_tpu.telemetry import launchlog as J_launchlog
 from tendermint_tpu.telemetry import registry as J_registry
 from tendermint_tpu.telemetry import tracectx as J_tracectx
-from tendermint_tpu_torch.telemetry import flightrec, launchlog, metrics, registry, tracectx
+from tendermint_tpu_torch.telemetry import flightrec, heightlog, launchlog, metrics, registry, tracectx
 from tendermint_tpu_torch.telemetry.spanlog import SpanLog, persist_spans
 from tendermint_tpu_torch.telemetry.tracer import Tracer
 from tendermint_tpu_torch.testing import lockrank_report
@@ -212,16 +213,21 @@ def test_span_names_in_the_port_are_catalogued():
 # -- the flight recorder ------------------------------------------------------------
 
 
-def _flight_sequence(fr_mod, ll_mod, dump_dir):
-    """The same events and launch records through either package's
-    recorder and ledger; returns the parsed dump."""
+def _flight_sequence(fr_mod, ll_mod, hl_mod, dump_dir):
+    """The same events, launch records and height records through either
+    package's recorder and ledgers; returns the parsed dump."""
+    import weakref
+
     fr = fr_mod.FlightRecorder(capacity=16)
     fr.set_node_id("n0")
-    saved = ll_mod.LAUNCHLOG
+    saved, saved_heights = ll_mod.LAUNCHLOG, hl_mod._LEDGERS
     ll_mod.LAUNCHLOG = ll_mod.LaunchLedger(capacity=64)
+    hl_mod._LEDGERS = weakref.WeakSet()
     try:
+        ledgers = [hl_mod.HeightLedger(capacity=64, node_id=f"n{k}") for k in range(2)]
         for i in range(40):
             ll_mod.LAUNCHLOG.record({"kind": "verify", "rows": i, "t": 1000.0 + i})
+            ledgers[i % 2].record({"height": i + 1, "t_commit": 2000.0 + i, "finality_s": 0.5})
         fr.record("breaker", breaker="verify", frm="closed", to="open")
         fr.record("mesh", event="shard_fault", shard=2, survivors=3)
         fr.record("dispatch_launch", queue="default", work="verify", error="")
@@ -232,21 +238,23 @@ def _flight_sequence(fr_mod, ll_mod, dump_dir):
         assert len(fr.recent(n=3)) == 3 and len(fr) == 16
         path = fr.dump("test: drill/1", dir=str(dump_dir))
     finally:
-        ll_mod.LAUNCHLOG = saved
+        ll_mod.LAUNCHLOG, hl_mod._LEDGERS = saved, saved_heights
     assert path is not None and path.endswith("flightrec-test--drill-1-1.json")
     return fr_mod.FlightRecorder.load(path)
 
 
 def test_flight_dump_equals_the_jax_dump(tmp_path):
-    port = _flight_sequence(flightrec, launchlog, tmp_path / "port")
-    jax = _flight_sequence(J_flightrec, J_launchlog, tmp_path / "jax")
+    port = _flight_sequence(flightrec, launchlog, heightlog, tmp_path / "port")
+    jax = _flight_sequence(J_flightrec, J_launchlog, J_heightlog, tmp_path / "jax")
     assert port.keys() == jax.keys() == {"node", "reason", "dumped_at", "events", "heights", "launches"}
 
     def untimed(d):
         return {**d, "dumped_at": None, "events": [{**e, "t": None} for e in d["events"]]}
 
-    # the JAX dump also embeds height-ledger records; the port has none
-    assert untimed(port) == {**untimed(jax), "heights": []}
+    # both dumps embed the newest 32 height records across live ledgers
+    assert untimed(port) == untimed(jax)
+    assert [r["height"] for r in port["heights"]] == list(range(9, 41))
+    assert {r["node"] for r in port["heights"]} == {"n0", "n1"}
     assert [r["rows"] for r in port["launches"]] == list(range(8, 40))
     assert [e["kind"] for e in port["events"]][-1] == "mesh"
 
@@ -342,3 +350,19 @@ def test_setup_logging_levels_and_format():
         for name in list(logging.Logger.manager.loggerDict):
             if name.startswith("tendermint_tpu."):
                 logging.getLogger(name).setLevel(levels.get(name, logging.NOTSET))
+
+
+def test_height_ledger_is_exported_lazily():
+    """`telemetry.HeightLedger` resolves to the port's height ledger on
+    first use, as the JAX package's `telemetry/__init__.py` exports it,
+    and a ledger's records reach the flight recorder's dumps."""
+    import tendermint_tpu_torch.telemetry as telemetry
+
+    assert "HeightLedger" in telemetry.__all__
+    assert telemetry.HeightLedger is heightlog.HeightLedger
+    led = telemetry.HeightLedger(node_id="lazy")
+    led.record({"height": 3, "t_commit": time.time() + 1e6})
+    try:
+        assert heightlog.recent_records(1) == [{"height": 3, "t_commit": led.last()["t_commit"], "node": "lazy"}]
+    finally:
+        led.close()
