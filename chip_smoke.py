@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's ed25519 verify path and Merkle hash
 plane once on the card.
 
-    python3 chip_smoke.py            # one CUDA card, about 5 minutes
+    python3 chip_smoke.py            # one CUDA card, about 8 minutes
 
 Phases (inputs made from --seed with numpy, signed with the port's
 pure-Python RFC 8032 module, more than 512 signatures at once in a
@@ -151,8 +151,43 @@ as a canonical vote's sign bytes):
    ledger's records account for each of its launches once its calls
    have joined (`StepLedger.settle`), and on a host fallback or a primary
    failure. Its `consensus_*` lines carry the numbers and the
-   launches; then the stack is closed. `--consensus-only` runs phase 0
-   and this phase alone;
+   launches. `--consensus-only` runs phase 0 and this phase alone;
+12. readpath, run after phase 11 on the same stack: the port's own
+   `statesync/`, `lightclient/`, `rpc/` and `certifiers/node_provider.py`.
+   `readpath_statesync`: a chain of phase 3's 1,000 keys (`KVStoreApp`)
+   grows 9 blocks of the `data_hash` cell's 65,536 txs of 250 bytes, is
+   snapshotted by the serving `StateSyncReactor.maybe_take_snapshot` on
+   `default_hasher()` (more than 8,192 chunks of 64 KiB: the chunk gate's
+   card threshold), and 16 more heights of 256 txs; two serving switches
+   (the snapshot and `BlockchainReactor(fast_sync=False)`), one with two
+   chunks flipped by `corrupt_chunk`, serve a fresh node
+   (`testing.StateSyncingNode`: a trust anchor pinned to the chain's hash
+   at height 4) over plain localhost TCP: the corrupt chunk is blamed on
+   arrival and fetched again, the gate hashes every chunk in one
+   `sha256_masked` launch and folds the root with `merkle_level`, the
+   restore equals the server's state and app hash at the snapshot, and
+   the fast-sync tail (one finish a window) ends with every block hash,
+   the state and the app hash equal to the server's; take, transfer
+   MB/s, gate, decode, restore and tail blocks/s are timed.
+   `readpath_lightclient` (BASELINE config 2): 10,000 heights of 100
+   validators of phase 2's keys, one replaced every 10 heights, commits
+   signed at height 1 and every 25th and served by a `LightClientReactor`
+   over localhost TCP; a `BisectingCertifier` over `PeerProvider` on
+   `default_verifier()` walks to the head (one verify call a round, a
+   round whose lanes less those the signature cache withholds reach 512
+   on `ladder` and the finish), a second walk answers from the trusted
+   cache with no launch, a walk against a server holding
+   `testing.forge_fullcommit`'s forgery fails with the certifier's
+   message, and its push to a subscribed client scores the server
+   `forged_fullcommit` and becomes `DuplicateVoteEvidence`.
+   `readpath_rpc`: `RPCServer(make_routes(...))` on the serving node
+   (`testing.ReadNode`), each route checked against the node's objects and
+   timed over `HTTPClient`, then `NodeProvider` feeding a
+   `DynamicCertifier` the 16 tail commits, each on `madd_chain_entries`.
+   Every step holds the launch ledger's records to the kernel wrappers'
+   launches (`StepLedger.settle`) and fails on a host fallback or
+   primary failure; its `readpath_*` lines carry the numbers. Then the
+   stack is closed. `--readpath-only` runs phase 0 and this phase alone;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -1330,10 +1365,12 @@ class StepLedger:
 
         return LAUNCHLOG.recent()[self.mark:]
 
-    def settle(self, timeout: float = 30.0) -> dict:
+    def settle(self, timeout: float = 30.0, roots: int = 0) -> dict:
         """The kernel launches since the step began, once its records
         account for every one of them (a dispatch unit commits its record
-        at its join)."""
+        at its join). `roots` is the step's `root_from_hashes` calls on the
+        card, held out of the hash family: each commits a record that
+        launches `merkle_level` alone."""
         from tendermint_tpu_torch.testing import kernel_launches, ledger_launches
 
         deadline = time.time() + timeout
@@ -1341,6 +1378,7 @@ class StepLedger:
             now = counts()
             c = {k: now[k] - self.base[k] for k in now}
             got, want = ledger_launches(self.records()), kernel_launches(c)
+            got["hash"] -= roots
             if got == want:
                 return c
             if time.time() > deadline:
@@ -3226,6 +3264,710 @@ def run_consensus(stack, inp, sync, n: int) -> dict:
     }
 
 
+READ_CHAIN = "chip-smoke-readpath"
+READ_BIG_BLOCKS = 9  # blocks of TXS txs: the snapshot's payload passes READ_MIN_CHUNKS chunks
+READ_MIN_CHUNKS = 8192  # the chunk gate's leaf count at which the hasher takes the card
+READ_TAIL_HEIGHTS = 16  # heights of READ_TAIL_TXS txs after the snapshot (the anchor and the tail)
+READ_TAIL_TXS = 256
+READ_TRUST_HEIGHT = 4  # the fresh node's trust pin
+READ_CORRUPT = (0, 1)  # chunks corrupted in server a's store: the pool asks a for one of them first
+READ_INFLIGHT = 32  # chunk requests in flight a peer: the serving channel's send queue holds 32
+READ_GIVEUP_S = 600.0
+READ_TIMEOUT_S = 600.0  # dial to caught up
+LC_CHAIN = "chip-smoke-light"
+LC_VALIDATORS = 100
+LC_HEIGHTS = 10000
+LC_ROTATE = 10  # one validator replaced every LC_ROTATE heights
+LC_HELD = 25  # the server holds height 1 and every LC_HELD-th height
+LC_TIME_NS = 1_700_000_000_000_000_000
+RPC_REPS = 5  # round trips timed a route, median
+
+
+def read_txs(rng, height: int, n: int) -> list[bytes]:
+    """`n` distinct txs of TX_BYTES random bytes with no b"=" in them, so
+    `KVStoreApp` keeps each whole as both key and value (about 1 KB of
+    its hex snapshot a tx)."""
+    body = rng.integers(0, 256, size=(n, TX_BYTES - 9), dtype=np.uint8)
+    body[body == ord("=")] = ord(">")
+    return [b"r%02d%06d" % (height, i) + bytes(row) for i, row in enumerate(body)]
+
+
+def merkle_levels(leaves: int) -> int:
+    """`merkle_level` launches of one device tree over `leaves` leaves."""
+    return (leaves - 1).bit_length()
+
+
+class HashClock:
+    """Times the calls a hasher's device backend makes while the `with`
+    block runs: `leaf_hashes` and `root_from_hashes` of `hasher.primary`,
+    each as (leaves, seconds, on the card); `roots` counts the card's
+    root calls, whose launch records the ledger files under the hash
+    family although they launch `merkle_level` alone."""
+
+    def __init__(self, hasher):
+        self.primary = hasher.primary
+        self.leaves: list = []
+        self.root_calls: list = []
+
+    def _wrap(self, name, into):
+        fn = getattr(self.primary, name)
+
+        def timed_call(items):
+            t0 = time.perf_counter()
+            out = fn(items)
+            into.append((len(items), time.perf_counter() - t0, self.primary._use_device(len(items))))
+            return out
+
+        setattr(self.primary, name, timed_call)
+
+    def __enter__(self):
+        self._wrap("leaf_hashes", self.leaves)
+        self._wrap("root_from_hashes", self.root_calls)
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("leaf_hashes", "root_from_hashes"):
+            self.primary.__dict__.pop(name, None)
+
+    def roots(self) -> int:
+        return sum(1 for _n, _s, dev in self.root_calls if dev)
+
+
+def run_readpath_statesync(stack, inp, sync, ns: int) -> dict:
+    """Phase 12, step 1: a fresh node state-syncs a snapshot of more than
+    READ_MIN_CHUNKS chunks of 64 KiB over plain localhost TCP onto the
+    card. A chain of phase 3's `ns` keys (equal power, `KVStoreApp`) is
+    built on the stack: READ_BIG_BLOCKS blocks of TXS txs of TX_BYTES
+    (the data_hash cell's block), the snapshot taken at that height
+    through the serving `StateSyncReactor.maybe_take_snapshot` with
+    `default_hasher()`, then READ_TAIL_HEIGHTS heights of READ_TAIL_TXS
+    txs. Two serving switches (`testing.snapshot_server`: the state-sync
+    reactor and `BlockchainReactor(fast_sync=False)` on the chain's
+    store) hold the snapshot; server a's store has chunks READ_CORRUPT
+    flipped by `corrupt_chunk`. A `testing.StateSyncingNode` (genesis
+    state, empty store, `TrustAnchor` pinned to the chain's header hash
+    at READ_TRUST_HEIGHT, `default_hasher()`, a fresh coalescer over the
+    stack) dials both: the anchor's certify launches
+    `madd_chain_entries`, the chunk that a serves first is corrupt and is
+    blamed on arrival (host hash), a is dropped and b serves the rest,
+    the gate hashes every chunk in one `sha256_masked` launch and folds
+    the root with `merkle_level`, the restore must equal the server's
+    state JSON and app hash at the snapshot height, and the fast-sync tail
+    (one finish a window, fused or entries chain by size) must end with
+    every block hash, the state JSON and the app hash equal to the
+    server's. The launch ledger must account for every launch of the
+    step (`StepLedger.settle`, the card's root calls held out)."""
+    from tendermint_tpu_torch.abci.apps import KVStoreApp
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.db.kv import MemDB
+    from tendermint_tpu_torch.p2p import tcp
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.statesync import SnapshotStore, TrustOptions
+    from tendermint_tpu_torch.statesync import reactor as ssr
+    from tendermint_tpu_torch.testing import StateSyncingNode, snapshot_server
+
+    hasher = default_hasher()
+    health = StackHealth(stack.inner, hasher)
+    rng = np.random.default_rng(inp.seed + 12)
+    snap_h = READ_BIG_BLOCKS
+    top = snap_h + READ_TAIL_HEIGHTS
+    rep: dict = {"validators": ns, "big_blocks": READ_BIG_BLOCKS, "big_txs": TXS, "tail_heights": READ_TAIL_HEIGHTS,
+                 "tail_txs": READ_TAIL_TXS, "tx_bytes": TX_BYTES, "inflight_per_peer": READ_INFLIGHT}
+
+    def expect(what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"readpath_statesync {what}: {got!r}, expected {want!r}")
+
+    def corrupt_chunks() -> float:
+        return _counter("tendermint_statesync_chunks_total", result="corrupt")
+
+    led = StepLedger("readpath", "statesync")
+    clock = HashClock(hasher)
+    with clock:
+        # 1. the chain, served from its store as it grows; the snapshot at
+        # snap_h through the serving reactor's cadence hook
+        chain_verifier = CoalescingVerifier(stack.inner)
+        store = BlockStore(MemDB())
+        snaps = SnapshotStore(MemDB(), hasher=hasher, chunk_size=CHUNK_BYTES)
+        t0 = time.perf_counter()
+        try:
+            chain = smoke_chain(inp, range(ns), KVStoreApp(), chain_verifier, hasher, READ_CHAIN)
+            sw_a, ss_a = snapshot_server(store, chain.state, snaps, "readpath-a", READ_CHAIN, hasher=hasher,
+                                         snapshot_interval=snap_h)
+            app_snapshot = chain.app.snapshot_state
+
+            def timed_app_snapshot():
+                t1 = time.perf_counter()
+                out = app_snapshot()
+                rep["take_app_snapshot_s"] = time.perf_counter() - t1
+                return out
+
+            chain.app.snapshot_state = timed_app_snapshot
+            for h in range(1, top + 1):
+                txs = read_txs(rng, h, TXS if h <= snap_h else READ_TAIL_TXS)
+                block = chain.advance(txs=txs)
+                store.save_block(block, block.make_part_set(hasher=hasher), chain.commits[-1])
+                if h == snap_h:
+                    rep["chain_to_snapshot_s"] = time.perf_counter() - t0
+                    want_snap_state, want_snap_app = chain.state.to_json(), chain.state.app_hash
+                if h <= snap_h:
+                    # the node's EVENT_NEW_BLOCK hook, wired until the snapshot lands
+                    t1 = time.perf_counter()
+                    leaves0 = len(clock.leaves)
+                    manifest = ss_a.maybe_take_snapshot(chain.state, app=chain.app)
+                    if manifest is not None:
+                        rep["take_s"] = time.perf_counter() - t1
+                        rep["take_leaf_s"] = sum(sec for _n, sec, _d in clock.leaves[leaves0:])
+                if h == top - 1:
+                    want_state = chain.state.to_json()
+        finally:
+            chain_verifier.coalescer.close()
+        rep["chain_s"] = time.perf_counter() - t0
+        expect("snapshots", [m.height for m in snaps.list_manifests()], [snap_h])
+        manifest = snaps.get_manifest(snap_h)
+        rep["chunks"] = manifest.chunks
+        rep["payload_bytes"] = manifest.payload_len
+        log({"phase": "readpath_snapshot", "height": snap_h, "chunks": manifest.chunks,
+             "payload_bytes": manifest.payload_len, "take_s": rep["take_s"]})
+        if manifest.chunks <= READ_MIN_CHUNKS:
+            raise AssertionError(f"readpath_statesync: the snapshot has {manifest.chunks} chunks, not more than "
+                                 f"{READ_MIN_CHUNKS}: the gate would not reach the card")
+        take_leaves = [c for c in clock.leaves if c[0] == manifest.chunks]
+        expect("take on the card", [dev for _n, _s, dev in take_leaves], [True])
+        health.check("readpath chain")
+
+        # 2. server b holds the same snapshot; a's copy of chunks READ_CORRUPT is flipped
+        snaps_b = SnapshotStore(MemDB(), hasher=hasher, chunk_size=CHUNK_BYTES)
+        snaps_b._db._data = dict(snaps._db._data)
+        sw_b, ss_b = snapshot_server(store, chain.state, snaps_b, "readpath-b", READ_CHAIN, hasher=hasher)
+        for i in READ_CORRUPT:
+            expect(f"corrupt_chunk {i}", snaps.corrupt_chunk(snap_h, index=i), True)
+        lis = [tcp.TcpListener(sw, "tcp://127.0.0.1:0") for sw in (sw_a, sw_b)]
+
+        # 3. the fresh node
+        fresh = CoalescingVerifier(stack.inner)
+        trust = TrustOptions(height=READ_TRUST_HEIGHT, hash_=store.load_block(READ_TRUST_HEIGHT).hash())
+        node = StateSyncingNode(chain.genesis, "readpath-fresh", fresh, hasher=hasher, trust=trust,
+                                chunk_inflight_per_peer=READ_INFLIGHT, giveup_time_s=READ_GIVEUP_S)
+        windows = SyncWindows(node.blockchain)
+        arrivals: list = []
+        on_chunk = node.statesync._on_chunk
+
+        def chunk_arrived(peer, height, fmt, index, data):
+            arrivals.append((time.perf_counter(), len(data)))
+            return on_chunk(peer, height, fmt, index, data)
+
+        node.statesync._on_chunk = chunk_arrived
+        stages: dict = {}
+        decode, restore = ssr.decode_payload, node.statesync._restore
+
+        def timed_restore(m, decoded, anchor_fc):
+            t1 = time.perf_counter()
+            out = restore(m, decoded, anchor_fc)
+            stages["restore_s"] = time.perf_counter() - t1
+            stages["state"], stages["app_hash"] = out.to_json(), out.app_hash
+            return out
+
+        def clocked(name, fn):
+            def call(*a):
+                t1 = time.perf_counter()
+                out = fn(*a)
+                stages[name] = time.perf_counter() - t1
+                return out
+            return call
+
+        # the restore's two largest parts: the app's restore and the tail's bootstrap
+        node.statesync.app_restore_fn = clocked("app_restore_s", node.statesync.app_restore_fn)
+        node.store.bootstrap = clocked("bootstrap_s", node.store.bootstrap)
+        ssr.decode_payload, node.statesync._restore = clocked("decode_s", decode), timed_restore
+        corrupt0 = corrupt_chunks()
+        leaves0, roots0 = len(clock.leaves), len(clock.root_calls)
+        try:
+            c0 = counts()
+            t0 = time.perf_counter()
+            for li in lis:
+                tcp.dial(node.switch, f"127.0.0.1:{li.port}")
+            if not node.caught_up.wait(timeout=READ_TIMEOUT_S):
+                raise AssertionError(f"readpath_statesync: not caught up in {READ_TIMEOUT_S} s, synced "
+                                     f"{node.synced.is_set()}, store at {node.store.height}")
+            sync()
+            c1 = counts()
+            c = {k: c1[k] - c0[k] for k in c1}
+            peers_left = sorted(p.id for p in node.switch.peers())
+        finally:
+            ssr.decode_payload = decode
+            node.stop()
+            for li in lis:
+                li.stop()
+            sw_a.stop()
+            sw_b.stop()
+            fresh.coalescer.close()
+        restored = node.statesync.restored_manifest
+        expect("restored snapshot", (restored.height, restored.root), (snap_h, manifest.root))
+        expect("corrupt chunks blamed", corrupt_chunks() - corrupt0, 1.0)
+        expect("peers left", peers_left, ["readpath-b"])
+        # the restore itself, before the tail moved the state on
+        expect("restored state", stages.get("state"), want_snap_state)
+        expect("restored app hash", stages.get("app_hash"), want_snap_app)
+        applied = top - 1
+        expect("store height", node.store.height, applied)
+        for h in range(snap_h - 1, applied + 1):
+            expect(f"block {h}", node.store.load_block(h).hash(), chain.blocks[h - 1].hash())
+        expect("state", node.state.to_json(), want_state)
+        expect("app hash", node.state.app_hash, chain.blocks[applied].header.app_hash)
+        expect("verdicts", [v for _, v in windows.verdicts], [None] * len(windows.sizes))
+        expect("redone", windows.redone, [])
+        # launches from dial to caught up: the anchor's certify, the gate's
+        # leaf pass and the two roots (the manifest's, the gate's), the tail
+        from tendermint_tpu_torch.ops.ed25519_tables import FUSED_MIN_STACK
+
+        # a window that holds the anchor's commit alone is answered by the
+        # signature cache the anchor's certify filled, and launches nothing
+        launched = [k for (start, _v), k in zip(windows.verdicts, windows.sizes)
+                    if not (start == snap_h + 1 and k == 1)]
+        fused = sum(1 for k in launched if k >= FUSED_MIN_STACK)
+        want = {"madd_chain_entries": 1 + len(launched) - fused, "madd_chain_fused": fused, "ladder": 0,
+                "finish_encode_compare": 1 + len(launched), "sha256_masked": 1,
+                "merkle_level": 2 * merkle_levels(manifest.chunks), "ripemd160_masked": 0, "sha512_masked": 0}
+        expect("launches from dial to caught up", {k: c[k] for k in want}, want)
+        gate_leaves = clock.leaves[leaves0:]
+        gate_roots = clock.root_calls[roots0:]
+        expect("gate leaf pass", [(n, dev) for n, _s, dev in gate_leaves], [(manifest.chunks, True)])
+        expect("roots", [(n, dev) for n, _s, dev in gate_roots], [(manifest.chunks, True)] * 2)
+        launches = led.settle(roots=clock.roots())
+        led.close()
+        health.check("readpath statesync")
+    t_first, t_last = arrivals[0][0], arrivals[-1][0]
+    got_bytes = sum(n for _t, n in arrivals)
+    rep.update({
+        "dial_to_caught_up_s": node.caught_up_at - t0,
+        "dial_to_synced_s": node.synced_at - t0,
+        "transfer_s": t_last - t_first,
+        "transfer_bytes": got_bytes,
+        "transfer_mb_s": got_bytes / (t_last - t_first) / 1e6,
+        "gate_leaf_ms": gate_leaves[0][1] * 1e3,
+        "gate_root_ms": gate_roots[-1][1] * 1e3,
+        "manifest_root_ms": gate_roots[0][1] * 1e3,
+        "decode_s": stages.get("decode_s"),
+        "restore_s": stages.get("restore_s"),
+        "app_restore_s": stages.get("app_restore_s"),
+        "bootstrap_s": stages.get("bootstrap_s"),
+        "tail_blocks": applied - snap_h,
+        "tail_s": node.caught_up_at - node.synced_at,
+        "tail_blocks_per_s": (applied - snap_h) / (node.caught_up_at - node.synced_at),
+        "tail_windows": windows.sizes,
+        "launches": c,
+        "step_launches": launches,
+    })
+    log({"phase": "readpath_statesync", **rep})
+    return rep, {"chain": chain, "store": store, "hasher": hasher, "snap_h": snap_h, "top": top}
+
+
+def light_chain(inp, n_vals: int, heights: int, rotate: int, held: int):
+    """FullCommits of a light-client chain (BASELINE config 2's shape):
+    the set at height h is keys r..r+n_vals-1 of `inp`, r = (h-1) //
+    `rotate`, at power TYPES_POWER, so one validator leaves and one
+    joins every `rotate` heights; a header at each held height (1 and
+    every `held`-th) names its set, and its commit is signed by all of
+    them (the signers' pool). Returns ({height: FullCommit}, seconds of
+    signing)."""
+    from tendermint_tpu_torch.certifiers.certifier import FullCommit
+    from tendermint_tpu_torch.crypto import PubKey
+    from tendermint_tpu_torch.types import VOTE_TYPE_PRECOMMIT, BlockID, Commit, Validator, ValidatorSet, Vote
+    from tendermint_tpu_torch.types.block import Header
+    from tendermint_tpu_torch.types.part_set import PartSetHeader
+
+    seeds = {}
+    plan = []
+    for h in [1] + list(range(held, heights + 1, held)):
+        r = (h - 1) // rotate
+        vals = []
+        for k in range(r, r + n_vals):
+            pk = PubKey(inp.pubs[k])
+            seeds[pk.address] = inp.seeds[k]
+            vals.append(Validator(address=pk.address, pub_key=pk, voting_power=TYPES_POWER))
+        vs = ValidatorSet(vals)
+        header = Header(chain_id=LC_CHAIN, height=h, time=LC_TIME_NS + h * 1_000_000_000, num_txs=0,
+                        last_block_id=BlockID.zero(), last_commit_hash=b"", data_hash=b"",
+                        validators_hash=vs.hash(), app_hash=h.to_bytes(8, "big"))
+        bid = BlockID(header.hash(), PartSetHeader(total=1, hash=header.hash()[:20]))
+        votes = [Vote(v.address, i, h, 0, LC_TIME_NS + h * 1_000_000_000 + i, VOTE_TYPE_PRECOMMIT, bid)
+                 for i, v in enumerate(vs.validators)]
+        plan.append((header, vs, bid, votes))
+    t0 = time.perf_counter()
+    sigs = inp.sign_many([(seeds[v.validator_address], v.sign_bytes(LC_CHAIN))
+                          for _h, _vs, _b, votes in plan for v in votes])
+    sign_s = time.perf_counter() - t0
+    fcs, at = {}, 0
+    for header, vs, bid, votes in plan:
+        pre = [v.with_signature(s) for v, s in zip(votes, sigs[at:at + len(votes)])]
+        at += len(votes)
+        fcs[header.height] = FullCommit(header=header, commit=Commit(block_id=bid, precommits=pre), validators=vs)
+    return fcs, sign_s, seeds
+
+
+def light_server(fcs: dict, node_id: str):
+    """A started `Switch` whose `LightClientReactor` serves `fcs` from its
+    certified cache (exact height, else the newest below: the provider
+    floor contract) and a `TcpListener` for it. Returns (switch, reactor,
+    listener)."""
+    from tendermint_tpu_torch.lightclient import CertifiedCommitCache, LightClientReactor
+    from tendermint_tpu_torch.p2p import NodeInfo, Switch, tcp
+
+    cache = CertifiedCommitCache(capacity=len(fcs) + 1)
+    for h in sorted(fcs):
+        cache.put_certified(fcs[h])
+    reactor = LightClientReactor(chain_id=LC_CHAIN, cache=cache)
+    sw = Switch(NodeInfo(node_id=node_id, moniker="light-server", chain_id=LC_CHAIN))
+    sw.add_reactor("lightclient", reactor)
+    sw.start()
+    return sw, reactor, tcp.TcpListener(sw, "tcp://127.0.0.1:0")
+
+
+def light_client(node_id: str, listener, **reactor_kwargs):
+    """A started `Switch` with a `LightClientReactor`, dialed to
+    `listener` over localhost TCP. Returns (switch, reactor)."""
+    from tendermint_tpu_torch.lightclient import CertifiedCommitCache, LightClientReactor
+    from tendermint_tpu_torch.p2p import NodeInfo, Switch, tcp
+
+    reactor_kwargs.setdefault("cache", CertifiedCommitCache())
+    reactor = LightClientReactor(chain_id=LC_CHAIN, **reactor_kwargs)
+    sw = Switch(NodeInfo(node_id=node_id, moniker="light-client", chain_id=LC_CHAIN))
+    sw.add_reactor("lightclient", reactor)
+    sw.start()
+    tcp.dial(sw, f"127.0.0.1:{listener.port}")
+    return sw, reactor
+
+
+class WalkRounds:
+    """Each verify call of a `BisectingCertifier`: its candidate heights,
+    its lanes and, when it returned, its skip verdicts, by a wrapper on
+    the instance."""
+
+    def __init__(self, cert):
+        self.calls: list = []
+        verify = cert._verify_candidates
+
+        def counted(fcs):
+            call = {"heights": [fc.height() for fc in fcs], "verdicts": None, "lanes": sum(
+                1 for fc in fcs for p in fc.commit.precommits
+                if p is not None and p.block_id == fc.commit.block_id)}
+            self.calls.append(call)
+            call["verdicts"] = verify(fcs)
+            return call["verdicts"]
+
+        cert._verify_candidates = counted
+
+    def lanes(self) -> list[int]:
+        return [c["lanes"] for c in self.calls]
+
+    def adopted(self, i: int) -> list[int]:
+        """The heights round `i` certified."""
+        c = self.calls[i]
+        return [h for h, ok in zip(c["heights"], c["verdicts"]) if ok]
+
+
+def run_readpath_lightclient(stack, inp, sync) -> dict:
+    """Phase 12, step 2 (BASELINE config 2): a light client replays
+    LC_HEIGHTS sequential heights at LC_VALIDATORS validators. The sets
+    rotate one validator every LC_ROTATE heights (phase 2's keys), so the
+    old set's overlap falls below 1/3 every few hundred heights; the
+    server holds height 1 and every LC_HELD-th (`light_chain`, signed in
+    the pool) in a `LightClientReactor` served over localhost TCP, and a
+    port `BisectingCertifier(source=PeerProvider(client reactor),
+    verifier=default_verifier(), trusted=CertifiedCommitCache())` walks
+    from height 1 to the head. The walk must end trusted at the head
+    with its set's hash, each round must be one verify call and one
+    launch record holding its lanes, and each round whose lanes less
+    those the signature cache withholds (candidates an earlier round
+    verified) reach the minimum device batch one `ladder` launch and one
+    finish, the others the host; a second walk over the same trusted
+    cache answers with zero launches. Then a server whose commit at the
+    walk's first adopted height is `testing.forge_fullcommit`'s forgery:
+    a fresh walk against it fails hard with the certifier's message, and
+    its push to a subscribed client that certified the honest commit
+    scores the server `forged_fullcommit` (a ban) and turns the genuine
+    double sign into `DuplicateVoteEvidence` in the client's pool."""
+    from tendermint_tpu_torch.evidence import EvidencePool
+    from tendermint_tpu_torch.lightclient import BisectingCertifier, CertifiedCommitCache, PeerProvider
+    from tendermint_tpu_torch.services.verifier import default_verifier
+    from tendermint_tpu_torch.testing import forge_fullcommit
+    from tendermint_tpu_torch.types import PrivValidator, ValidationError
+    from tendermint_tpu_torch.crypto import PrivKey
+
+    min_batch = stack.inner.primary._min_batch
+    health = StackHealth(stack.inner)
+    rep: dict = {"validators": LC_VALIDATORS, "heights": LC_HEIGHTS, "rotate_every": LC_ROTATE,
+                 "held_every": LC_HELD}
+
+    def expect(what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"readpath_lightclient {what}: {got!r}, expected {want!r}")
+
+    fcs, rep["sign_s"], seeds = light_chain(inp, LC_VALIDATORS, LC_HEIGHTS, LC_ROTATE, LC_HELD)
+    rep["held_commits"] = len(fcs)
+    log({"phase": "readpath_light_chain", "held_commits": len(fcs), "sign_s": rep["sign_s"]})
+    head = fcs[LC_HEIGHTS]
+    verifier = default_verifier()
+    expect("default_verifier()", verifier is stack, True)
+    led = StepLedger("readpath", "lightclient")
+    sw_s, _srv, lis = light_server(fcs, "light-server")
+    sw_c, client = light_client("light-client", lis)
+    try:
+        trusted = CertifiedCommitCache()
+        cert = BisectingCertifier(LC_CHAIN, seed=fcs[1], trusted=trusted, source=PeerProvider(client),
+                                  verifier=verifier)
+        rounds = WalkRounds(cert)
+        c0 = counts()
+        t0 = time.perf_counter()
+        cert.verify_to_height(LC_HEIGHTS)
+        sync()
+        walk_s = time.perf_counter() - t0
+        c1 = counts()
+        c = {k: c1[k] - c0[k] for k in c1}
+        expect("trusted height", cert.last_height, LC_HEIGHTS)
+        expect("trusted set", cert.validators.hash(), head.validators.hash())
+        expect("head in the trusted cache", trusted.get_exact(LC_HEIGHTS).header.hash(), head.header.hash())
+        expect("verify calls", len(rounds.calls), cert.last_walk_rounds)
+        expect("lanes", sum(rounds.lanes()), cert.last_walk_verifies)
+        # one flat call a round; a round re-probing a candidate an earlier
+        # round verified has those lanes withheld by the signature cache,
+        # and the rest goes to the card at the minimum batch or more
+        recs = [r for r in led.records() if r.get("kind") == "verify" and not r.get("error")]
+        expect("one flat call a round", len(recs), cert.last_walk_rounds)
+        expect("each round's lanes", [int(r.get("rows", 0)) + int(r.get("rows_cached", 0)) for r in recs],
+               rounds.lanes())
+        expect("the card answers each round of the minimum batch or more after the cache",
+               [r.get("backend", "host") != "host" for r in recs],
+               [int(r.get("rows", 0)) >= min_batch for r in recs])
+        flat = {"device_flat_sizes": [int(r["rows"]) for r in recs if r.get("backend", "host") != "host"],
+                "host_flat_sizes": [int(r.get("rows", 0)) for r in recs if r.get("backend", "host") == "host"],
+                "rows_cached": [int(r.get("rows_cached", 0)) for r in recs]}
+        dev_rounds = len(flat["device_flat_sizes"])
+        expect("walk launches", {k: c[k] for k in VERIFY_KERNELS},
+               {"madd_chain_entries": 0, "madd_chain_fused": 0, "ladder": dev_rounds,
+                "finish_encode_compare": dev_rounds})
+        big = sum(1 for n in rounds.lanes() if n >= min_batch)
+        walk = {"rounds": cert.last_walk_rounds, "lanes": rounds.lanes(), "verifies": cert.last_walk_verifies,
+                "rows_to_card": flat["device_flat_sizes"], "rows_to_host": flat["host_flat_sizes"],
+                "rows_cached": flat["rows_cached"],
+                "candidates": [len(c["heights"]) for c in rounds.calls], "rounds_of_min_batch_or_more": big,
+                "rounds_on_the_card": dev_rounds,
+                "walk_s": walk_s, "commits_certified_per_s": sum(len(c["heights"]) for c in rounds.calls) / walk_s,
+                "heights_per_s": (LC_HEIGHTS - 1) / walk_s, "verifies_per_s": cert.last_walk_verifies / walk_s,
+                "launches": c, "flat": flat}
+        rep["walk"] = walk
+        log({"phase": "readpath_light_walk", **walk})
+        # the second walk from height 1 answers from the trusted cache
+        again = BisectingCertifier(LC_CHAIN, seed=fcs[1], trusted=trusted, source=PeerProvider(client),
+                                   verifier=verifier)
+        c0 = counts()
+        t0 = time.perf_counter()
+        again.verify_to_height(LC_HEIGHTS)
+        rep["cached_walk_s"] = time.perf_counter() - t0
+        c1 = counts()
+        expect("cached walk height", again.last_height, LC_HEIGHTS)
+        expect("cached walk launches", sum(c1[k] - c0[k] for k in c1), 0)
+        expect("cached walk rounds", again.last_walk_rounds, 0)
+    finally:
+        sw_c.stop()
+        sw_s.stop()
+        lis.stop()
+
+    # the forged server: its commit at the walk's first adopted height
+    forged_at = max(rounds.adopted(0))
+    honest = fcs[forged_at]
+    compromised_addr = honest.validators.validators[0].address
+    compromised = PrivValidator(PrivKey(seeds[compromised_addr]))
+    forged = forge_fullcommit(honest, compromised, LC_CHAIN)
+    bad = dict(fcs)
+    bad[forged_at] = forged
+    sw_f, srv_f, lis_f = light_server(bad, "light-forger")
+    pool = EvidencePool(chain_id=LC_CHAIN)
+    try:
+        sw_c, client = light_client("light-client-2", lis_f)
+        try:
+            fresh = BisectingCertifier(LC_CHAIN, seed=fcs[1], trusted=CertifiedCommitCache(),
+                                       source=PeerProvider(client), verifier=verifier)
+            frounds = WalkRounds(fresh)
+            want_msg = (f"candidate at height {forged_at} lacks its own +2/3 quorum "
+                        f"({TYPES_POWER} of {TYPES_POWER * LC_VALIDATORS})")
+            try:
+                fresh.verify_to_height(LC_HEIGHTS)
+                raise AssertionError("readpath_lightclient: the walk against the forger ended trusted")
+            except ValidationError as e:
+                expect("forged walk error", (type(e).__name__, str(e)), ("ValidationError", want_msg))
+            expect("forged walk height", fresh.last_height, 1)
+        finally:
+            sw_c.stop()
+        # the push: a subscribed client that certified the honest commit
+        base = _counter("tendermint_p2p_peer_misbehavior_total", kind="forged_fullcommit")
+        sw_c, client = light_client("light-client-3", lis_f, cache=trusted, certifier=cert, subscribe=True,
+                                    evidence_pool=pool, verifier=verifier)
+        try:
+            deadline = time.time() + 30
+            while not srv_f._subscribers and time.time() < deadline:
+                time.sleep(0.01)
+            srv_f.announce(forged)
+            while pool.depth() == 0 and time.time() < deadline:
+                time.sleep(0.01)
+            expect("evidence", pool.depth(), 1)
+            ev = pool.pending_evidence()[0]
+            expect("evidence validator", ev.address, compromised_addr)
+            expect("forged_fullcommit scored",
+                   _counter("tendermint_p2p_peer_misbehavior_total", kind="forged_fullcommit") - base >= 1, True)
+            expect("forger banned", sw_c.scorer.is_banned("light-forger"), True)
+            expect("cache kept the honest commit", trusted.get_exact(forged_at).header.hash(), honest.header.hash())
+        finally:
+            sw_c.stop()
+    finally:
+        pool.close()
+        sw_f.stop()
+        lis_f.stop()
+    rep["forged"] = {"height": forged_at, "message": want_msg, "rounds": fresh.last_walk_rounds,
+                     "lanes": frounds.lanes(), "evidence_validator": compromised_addr.hex()}
+    rep["step_launches"] = led.settle()
+    led.close()
+    health.check("readpath lightclient")
+    log({"phase": "readpath_lightclient", **{k: v for k, v in rep.items() if k != "walk"}})
+    return rep
+
+
+def run_readpath_rpc(stack, inp, sync, served: dict) -> dict:
+    """Phase 12, step 3: the port's `RPCServer` with `make_routes` on the
+    serving node of step 1 (`testing.ReadNode` over its chain's store,
+    state and app, a `LightClientReactor` on its store, the resilient
+    hasher). Over `HTTPClient`, `status`, `block`, `commit`,
+    `full_commit`, `validators`, `abci_info`, `health` and
+    `dump_telemetry(launches=64)` must each answer what the node's objects
+    hold (the `launches` view's records are the port's `LAUNCHLOG`'s
+    newest), RPC_REPS round trips each timed; then a `NodeProvider` over
+    the `HTTPClient` feeds a port `DynamicCertifier` (a fresh coalescer
+    over the stack) that certifies the READ_TAIL_HEIGHTS heights after
+    the snapshot, each a verify of the whole set on `madd_chain_entries`
+    and the finish."""
+    from tendermint_tpu_torch.certifiers.certifier import DynamicCertifier, FullCommit
+    from tendermint_tpu_torch.certifiers.node_provider import NodeProvider
+    from tendermint_tpu_torch.lightclient import LightClientReactor
+    from tendermint_tpu_torch.rpc import RPCServer, make_routes
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
+    from tendermint_tpu_torch.testing import ReadNode
+
+    chain, store, hasher = served["chain"], served["store"], served["hasher"]
+    snap_h, top = served["snap_h"], served["top"]
+    health = StackHealth(stack.inner, hasher)
+    rep: dict = {"reps": RPC_REPS}
+
+    def expect(what: str, got, want) -> None:
+        if got != want:
+            raise AssertionError(f"readpath_rpc {what}: {got!r}, expected {want!r}")
+
+    led = StepLedger("readpath", "rpc")
+    lc = LightClientReactor(chain_id=READ_CHAIN, block_store=store, state=chain.state)
+    node = ReadNode(chain.genesis, chain.state, store, chain.app, "readpath-server", lightclient_reactor=lc,
+                    hasher=hasher, moniker="readpath")
+    server = RPCServer(make_routes(node), "tcp://127.0.0.1:0", event_switch=node.event_switch)
+    server.start()
+    cli = HTTPClient(f"127.0.0.1:{server.port}")
+    h = top - 1
+    try:
+        calls = {
+            "status": lambda: cli.status(),
+            "block": lambda: cli.block(h),
+            "commit": lambda: cli.commit(h),
+            "full_commit": lambda: cli._call("full_commit", height=h),
+            "validators": lambda: cli.validators(h),
+            "abci_info": lambda: cli.abci_info(),
+            "health": lambda: cli._call("health"),
+            "dump_telemetry": lambda: cli._call("dump_telemetry", launches=64),
+        }
+        ms, out = {}, {}
+        for name, fn in calls.items():
+            times = []
+            for _ in range(RPC_REPS):
+                t0 = time.perf_counter()
+                out[name] = fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = statistics.median(times)
+        st = out["status"]
+        expect("status", (st["node_info"]["id"], st["node_info"]["moniker"], st["node_info"]["chain_id"],
+                          st["sync_info"]["latest_block_height"], st["sync_info"]["latest_block_hash"],
+                          st["sync_info"]["latest_app_hash"]),
+               ("readpath-server", "readpath", READ_CHAIN, top, chain.blocks[top - 1].hash().hex(),
+                chain.state.app_hash.hex()))
+        blk = out["block"]["block"]
+        expect("block", (blk["header"]["hash"], len(blk["txs"]), blk["last_commit"]["precommits"]),
+               (chain.blocks[h - 1].hash().hex(), READ_TAIL_TXS, len(chain.state.validators.validators)))
+        cm = out["commit"]["commit"]
+        want_commit = store.load_block_commit(h)
+        expect("commit", (cm["block_id"]["hash"], cm["signatures"], out["commit"]["canonical"]),
+               (want_commit.block_id.hash.hex(), len(want_commit.precommits), True))
+        fc = FullCommit.decode(bytes.fromhex(out["full_commit"]["full_commit"]))
+        expect("full_commit", fc.encode(), lc.serve_commit(h).encode())
+        expect("validators", [v["address"] for v in out["validators"]["validators"]],
+               [v.address.hex() for v in chain.state.load_validators(h)])
+        info = out["abci_info"]
+        expect("abci_info", (info["last_block_height"], info["last_block_app_hash"]),
+               (top, chain.state.app_hash.hex()))
+        hl = out["health"]
+        expect("health", (hl["node_id"], hl["height"], hl["checks"]["breakers"]["states"]),
+               ("readpath-server", top, {"hasher": "closed"}))
+        recs = out["dump_telemetry"]["launches"]["records"]
+        expect("launches view", json.loads(json.dumps(recs)), json.loads(json.dumps(LAUNCHLOG.recent(64))))
+        rep["route_ms"] = ms
+        log({"phase": "readpath_rpc_routes", **ms})
+
+        # certifying over RPC: the tail heights, each a verify of the set
+        fresh = CoalescingVerifier(stack.inner)
+        try:
+            provider = NodeProvider(cli)
+            cert = DynamicCertifier(READ_CHAIN, chain.state.load_validators(snap_h + 1), snap_h, fresh)
+            c0 = counts()
+            t0 = time.perf_counter()
+            fetch_s = 0.0
+            for hh in range(snap_h + 1, top + 1):
+                t1 = time.perf_counter()
+                fc = provider.get_by_height(hh)
+                fetch_s += time.perf_counter() - t1
+                expect(f"provider height {hh}", fc.height(), hh)
+                cert.certify(fc)
+            sync()
+            certify_s = time.perf_counter() - t0
+            c1 = counts()
+        finally:
+            fresh.coalescer.close()
+        c = {k: c1[k] - c0[k] for k in c1}
+        n = top - snap_h
+        expect("certify launches", {k: c[k] for k in VERIFY_KERNELS},
+               {"madd_chain_entries": n, "madd_chain_fused": 0, "ladder": 0, "finish_encode_compare": n})
+        rep["certify"] = {"commits": n, "validators": len(chain.state.validators.validators), "s": certify_s,
+                          "fetch_s": fetch_s, "commits_per_s": n / certify_s, "launches": c}
+        log({"phase": "readpath_rpc_certify", **rep["certify"]})
+    finally:
+        server.stop()
+    rep["step_launches"] = led.settle()
+    led.close()
+    health.check("readpath rpc")
+    return rep
+
+
+def run_readpath(stack, inp, sync, ns: int) -> dict:
+    """Phase 12: the read path (state sync, the light client, RPC) on the
+    stack, which it leaves with the table cache it found."""
+    c0 = counts()
+    with TableCacheKept(stack.inner.primary):
+        statesync, served = run_readpath_statesync(stack, inp, sync, ns)
+        rep = {"statesync": statesync, "lightclient": run_readpath_lightclient(stack, inp, sync),
+               "rpc": run_readpath_rpc(stack, inp, sync, served)}
+    c1 = counts()
+    rep["launches"] = {k: c1[k] - c0[k] for k in c1}
+    log({"phase": "readpath", "launches": rep["launches"]})
+    return rep
+
+
 MESH_SHARDS = 4
 MESH_REPS = 3  # timed calls a step, median
 MESH_REPROBE_S = 0.2
@@ -3738,6 +4480,27 @@ def run_consensus_only(args) -> dict:
     return report
 
 
+def run_readpath_only(args) -> dict:
+    """`--readpath-only`: phase 0, then phase 12 alone on
+    `default_verifier()` and the keys a full run makes from the same
+    seed."""
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+    from tendermint_tpu_torch.services.verifier import default_verifier
+
+    import torch
+
+    report: dict = {"args": vars(args), "env": environment()}
+    inp = Inputs(args.seed, args.validators)
+    stack = default_verifier()
+    check_layers(stack)
+    try:
+        report["readpath"] = run_readpath(stack, inp, torch.cuda.synchronize, args.sync_validators)
+    finally:
+        stack.close()
+        default_dispatch_queue().close()
+    return report
+
+
 def run(args) -> dict:
     import torch
 
@@ -3901,6 +4664,11 @@ def run(args) -> dict:
 
     # -- phase 11: the mempool, a 10k-validator storm and a 4-validator net --
     report["consensus_phase"] = run_consensus(stack, inp, sync, n)
+
+    # -- phase 12: the read path (state sync, the light client, RPC) --------
+    report["readpath"] = run_readpath(stack, inp, sync, ns)
+    for name, v in report["readpath"]["launches"].items():
+        launches[name] = launches.get(name, 0) + v
     close_signers()  # the last phase that signs in bulk
     stack.close()
     default_dispatch_queue().close()
@@ -4074,6 +4842,7 @@ def main() -> int:
                     help="phase 0 and the mesh phase alone (for a call on several cards)")
     ap.add_argument("--sync-only", action="store_true", help="phase 0 and the sync phase alone")
     ap.add_argument("--consensus-only", action="store_true", help="phase 0 and the consensus phase alone")
+    ap.add_argument("--readpath-only", action="store_true", help="phase 0 and the read-path phase alone")
     args = ap.parse_args()
 
     import torch
@@ -4094,6 +4863,8 @@ def main() -> int:
             report = run_sync_only(args)
         elif args.consensus_only:
             report = run_consensus_only(args)
+        elif args.readpath_only:
+            report = run_readpath_only(args)
         else:
             report = run(args)
         report["metrics"] = dump_metrics()

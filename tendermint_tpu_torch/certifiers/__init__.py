@@ -14,7 +14,8 @@ commits in one device call through the valset-table kernel
 The port's copy of `tendermint_tpu.certifiers`, with the same exports.
 A certifier given `verifier=None` verifies on the port's
 `default_verifier()`, the card's stack, which raises without a card.
-`node_provider` reads a node over RPC and waits for the port's `rpc`.
+`node_provider` reads a node over the port's RPC (`rpc.client`, imported
+inside its methods) and is not exported here, as in the JAX package.
 """
 
 from tendermint_tpu_torch.certifiers.certifier import (

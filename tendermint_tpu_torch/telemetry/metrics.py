@@ -415,6 +415,7 @@ SPAN_CATALOG = frozenset(
         "batcher.flush",
         "consensus.height",
         "dispatch.launch",
+        "lightclient.walk",
         "mempool.admission",
         "mempool.window",
         "p2p.hop",
@@ -441,18 +442,112 @@ LOCK_HOLD_SECONDS = Histogram(
     buckets=LATENCY_BUCKETS,
 )
 
-# -- light client (certifiers/certifier.py) ------------------------------------
+# -- contention observatory (telemetry/profiler.py) ----------------------------
 #
-# `mode` splits the header-by-header walk (sequential, the
-# InquiringCertifier) from the skipping walk (bisect, which the port
-# does not carry yet); both series exist from import.
+# Stack samples by subsystem and on-CPU/blocked state; they only
+# advance while profiling is armed (TENDERMINT_TPU_PROFILE_HZ > 0 or a
+# profiler boost window).
 
+PROFILE_SAMPLES = Counter(
+    "tendermint_profile_samples_total",
+    "Profiler stack samples by subsystem and on-CPU/blocked state "
+    "(state=blocked carries the wait-reason split)",
+    labelnames=("subsystem", "state", "wait"),
+)
+PROFILE_TICK_SECONDS = Histogram(
+    "tendermint_profile_tick_seconds",
+    "Wall time one profiler sampling pass took (self-overhead guard)",
+    buckets=LATENCY_BUCKETS,
+)
+
+# -- state sync (statesync/) ---------------------------------------------------
+
+STATESYNC_CHUNKS = Counter(
+    "tendermint_statesync_chunks_total",
+    "Snapshot chunks received while syncing (ok/corrupt/timeout)",
+    labelnames=("result",),
+)
+STATESYNC_CHUNKS_SERVED = Counter(
+    "tendermint_statesync_chunks_served_total",
+    "Snapshot chunks served to syncing peers",
+)
+STATESYNC_CHUNK_VERIFY_SECONDS = Histogram(
+    "tendermint_statesync_chunk_verify_seconds",
+    "Batched Merkle verification latency over a full snapshot chunk set",
+    buckets=LATENCY_BUCKETS,
+)
+STATESYNC_RESTORE_SECONDS = Histogram(
+    "tendermint_statesync_restore_seconds",
+    "Wall time from snapshot selection to restored state (incl. chunk fetch)",
+    buckets=LATENCY_BUCKETS,
+)
+STATESYNC_SNAPSHOT_SECONDS = Histogram(
+    "tendermint_statesync_snapshot_seconds",
+    "Snapshot creation latency (serialize + chunk + device tree + persist)",
+    buckets=LATENCY_BUCKETS,
+)
+STATESYNC_SNAPSHOTS_TAKEN = Counter(
+    "tendermint_statesync_snapshots_taken_total", "Snapshots created by this node"
+)
+STATESYNC_SNAPSHOTS_REJECTED = Counter(
+    "tendermint_statesync_snapshots_rejected_total",
+    "Offered snapshots rejected (trust anchoring, bad chunks, timeouts)",
+)
+STATESYNC_RESTORES = Counter(
+    "tendermint_statesync_restores_total",
+    "Snapshot restore attempts by outcome (ok/failed)",
+    labelnames=("result",),
+)
+
+# -- light client (certifiers/, lightclient/) ----------------------------------
+#
+# `result` is the fixed walk-outcome vocabulary (ok, too_much_change,
+# forged, trust_expired, no_source); only `forged` is a provider
+# offense. `mode` splits the header-by-header walk (sequential, the
+# InquiringCertifier) from the skipping walk (bisect). `kind` on the
+# proofs-served counter is the fixed query taxonomy, never heights or
+# peer ids.
+
+LIGHTCLIENT_BISECTIONS = Counter(
+    "tendermint_lightclient_bisections_total",
+    "Skipping-verification walks by outcome (ok / too_much_change / "
+    "forged / trust_expired / no_source)",
+    labelnames=("result",),
+)
 LIGHTCLIENT_WALK_SECONDS = Histogram(
     "tendermint_lightclient_walk_seconds",
     "Wall time one certifier walk took to move trust to the target "
     "height (sequential = header-by-header InquiringCertifier, "
     "bisect = batched skipping verification)",
     labelnames=("mode",),
+    buckets=LATENCY_BUCKETS,
+)
+LIGHTCLIENT_CACHE_HITS = Counter(
+    "tendermint_lightclient_cache_hits_total",
+    "FullCommit lookups answered from the certified-commit cache",
+)
+LIGHTCLIENT_CACHE_MISSES = Counter(
+    "tendermint_lightclient_cache_misses_total",
+    "FullCommit lookups that missed the certified-commit cache",
+)
+REPLICA_PROOFS_SERVED = Counter(
+    "tendermint_replica_proofs_served_total",
+    "Light-client queries answered by this node's serving layer, by "
+    "proof kind (p2p FullCommit channel + proof-carrying RPC routes)",
+    labelnames=("kind",),
+)
+
+# -- rpc (rpc/server.py, rpc/core.py) ------------------------------------------
+
+RPC_REQUESTS = Counter(
+    "tendermint_rpc_requests_total",
+    "RPC calls served, by method and outcome",
+    labelnames=("method", "result"),
+)
+RPC_SECONDS = Histogram(
+    "tendermint_rpc_request_seconds",
+    "RPC handler latency by method (dispatch to result, excl. socket I/O)",
+    labelnames=("method",),
     buckets=LATENCY_BUCKETS,
 )
 
@@ -629,8 +724,14 @@ for _reason in ("propose", "prevote", "vote_tally", "shutdown", "fault"):
     PIPELINE_STALLS.labels(reason=_reason).inc(0)
 for _phase in ("propose", "prevote", "precommit", "commit"):
     CONSENSUS_TIMEOUT_DERIVED.labels(phase=_phase)
+for _result in ("ok", "corrupt", "timeout"):
+    STATESYNC_CHUNKS.labels(result=_result).inc(0)
+for _result in ("ok", "too_much_change", "forged", "trust_expired", "no_source"):
+    LIGHTCLIENT_BISECTIONS.labels(result=_result).inc(0)
 for _mode in ("sequential", "bisect"):
     LIGHTCLIENT_WALK_SECONDS.labels(mode=_mode)
+for _kind in ("full_commit", "commit", "validators", "tx", "abci_query"):
+    REPLICA_PROOFS_SERVED.labels(kind=_kind).inc(0)
 for _kind in (
     "bad_frame",
     "oversize_frame",

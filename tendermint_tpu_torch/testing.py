@@ -668,3 +668,186 @@ def start_net(nodes) -> None:
     for i in range(len(nodes)):
         for j in range(i + 1, len(nodes)):
             connect_switches(nodes[i].switch, nodes[j].switch)
+
+
+# -- read-path fixtures: snapshot serving, a state-syncing node, the RPC node --
+
+
+def forge_fullcommit(honest_fc, compromised_priv, chain_id: str):
+    """A forged FullCommit at an already-committed height (the JAX
+    package's `testing/byzantine.py` `forge_fullcommit`): a forged header
+    (wrong app_hash) carrying ONE genuine precommit, the compromised
+    validator double-signing the forged block, and no other signature.
+    Certification must reject it (one validator is never its own +2/3
+    quorum), and the genuine double sign is the slashable proof
+    `lightclient.extract_double_sign_evidence` mines out of the
+    rejection."""
+    from dataclasses import replace as _replace
+
+    from tendermint_tpu_torch.certifiers.certifier import FullCommit
+    from tendermint_tpu_torch.types import VOTE_TYPE_PRECOMMIT, BlockID, Vote
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.part_set import PartSetHeader
+
+    forged_header = _replace(honest_fc.header, app_hash=b"\xde\xad\xbe\xef" * 5)
+    forged_bid = BlockID(forged_header.hash(), PartSetHeader(total=1, hash=forged_header.hash()[:20]))
+    vals = honest_fc.validators
+    idx, _val = vals.get_by_address(compromised_priv.address)
+    if idx < 0:
+        raise ValueError("compromised validator not in the honest valset")
+    round_ = honest_fc.commit.round()
+    honest_pc = honest_fc.commit.precommits[idx]
+    vote = Vote(
+        validator_address=compromised_priv.address,
+        validator_index=idx,
+        height=honest_fc.height(),
+        round=round_,
+        timestamp=honest_pc.timestamp + 1 if honest_pc is not None else 1,
+        type=VOTE_TYPE_PRECOMMIT,
+        block_id=forged_bid,
+    )
+    sig = compromised_priv._signer.sign(vote.sign_bytes(chain_id))
+    precommits: list = [None] * len(vals.validators)
+    precommits[idx] = vote.with_signature(sig)
+    return FullCommit(header=forged_header, commit=Commit(block_id=forged_bid, precommits=precommits),
+                      validators=vals)
+
+
+def snapshot_server(store, state, snapshot_store, node_id: str, chain_id: str, hasher=None,
+                    snapshot_interval: int = 0):
+    """A started `Switch` that serves a snapshot as a node does, wired as
+    the JAX `node/node.py` wires it: a serving `StateSyncReactor` over
+    `snapshot_store` (its commits answered from `store` and `state`'s
+    historical validator sets) and a `BlockchainReactor(fast_sync=False)`
+    over `store` for the fast-sync tail. Returns (switch, statesync
+    reactor)."""
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.p2p import NodeInfo, Switch
+    from tendermint_tpu_torch.statesync import StateSyncReactor
+
+    ss = StateSyncReactor(snapshot_store=snapshot_store, block_store=store, state=state, hasher=hasher,
+                          snapshot_interval=snapshot_interval)
+    sw = Switch(NodeInfo(node_id=node_id, moniker="server", chain_id=chain_id))
+    sw.add_reactor("blockchain", BlockchainReactor(state=None, store=store, app_conn=None, fast_sync=False))
+    sw.add_reactor("statesync", ss)
+    sw.start()
+    return sw, ss
+
+
+class StateSyncingNode:
+    """A fresh node that state-syncs a snapshot and then fast-syncs the
+    tail: the genesis state on a `MemDB`, an empty `BlockStore`,
+    `KVStoreApp` (its `restore_state` restores the app), and a started
+    `Switch` with `StateSyncReactor(sync=True)` and a deferred
+    `BlockchainReactor(fast_sync=True)`, wired as the JAX `node/node.py`
+    wires them: the reactor's `TrustAnchor` starts from the genesis set
+    with `trust` (`TrustOptions`), and `on_synced` adopts the restored
+    state and calls `begin_fast_sync`. `verifier` and `hasher` go to the
+    anchor, both reactors and the fast-sync tail. `synced` is set when
+    the state sync ends (at `synced_at`), `caught_up` when the tail does
+    (at `caught_up_at`, `time.perf_counter()`); `reactor_kwargs` go to
+    the `StateSyncReactor`."""
+
+    def __init__(self, genesis, node_id: str, verifier, hasher=None, trust=None, **reactor_kwargs):
+        import threading
+
+        from tendermint_tpu_torch.abci.apps import KVStoreApp
+        from tendermint_tpu_torch.abci.client import local_client_creator
+        from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+        from tendermint_tpu_torch.blockchain.store import BlockStore
+        from tendermint_tpu_torch.db.kv import MemDB
+        from tendermint_tpu_torch.p2p import NodeInfo, Switch
+        from tendermint_tpu_torch.state import make_genesis_state
+        from tendermint_tpu_torch.statesync import SnapshotStore, StateSyncReactor, TrustAnchor
+
+        self.state_db = MemDB()
+        self.state = make_genesis_state(self.state_db, genesis)
+        self.state.save()
+        self.store = BlockStore(MemDB())
+        self.app = KVStoreApp()
+        self.conns = local_client_creator(self.app)()
+        self.synced = threading.Event()
+        self.caught_up = threading.Event()
+        self.synced_at = self.caught_up_at = None
+        self.anchor = TrustAnchor(chain_id=genesis.chain_id, base_validators=genesis.validator_set(),
+                                  options=trust, verifier=verifier)
+        self.blockchain = BlockchainReactor(state=self.state, store=self.store, app_conn=self.conns.consensus,
+                                            fast_sync=True, on_caught_up=self._on_caught_up, verifier=verifier,
+                                            hasher=hasher, deferred=True)
+        self.statesync = StateSyncReactor(
+            snapshot_store=SnapshotStore(MemDB(), hasher=hasher), block_store=self.store, state=self.state,
+            sync=True, trust_anchor=self.anchor, state_db=self.state_db, app_restore_fn=self.app.restore_state,
+            app_snapshot_fn=self.app.snapshot_state, on_synced=self._on_synced, hasher=hasher, **reactor_kwargs,
+        )
+        self.switch = Switch(NodeInfo(node_id=node_id, moniker="fresh", chain_id=genesis.chain_id))
+        self.switch.add_reactor("blockchain", self.blockchain)
+        self.switch.add_reactor("statesync", self.statesync)
+        self.switch.start()
+
+    def _on_synced(self, state) -> None:
+        import time
+
+        self.synced_at = time.perf_counter()
+        if state is not None:
+            self.state = state
+            self.statesync.state = state
+        self.synced.set()
+        self.blockchain.begin_fast_sync(state)
+
+    def _on_caught_up(self, state) -> None:
+        import time
+
+        self.caught_up_at = time.perf_counter()
+        self.state = state
+        self.caught_up.set()
+
+    def stop(self) -> None:
+        self.switch.stop()
+
+
+class ReadNode:
+    """The node `rpc.core.make_routes` and `telemetry.health.build_health`
+    read, assembled from the port's parts (the port has no `Node` yet):
+    `genesis`, `block_store`, `current_state` (the state object given,
+    read live), the app's connections (`app_conns`), an `EventSwitch`,
+    and the `tx_indexer`, `lightclient_reactor` and `hasher` the caller
+    has; no switch, mempool, consensus, priv validator or sync reactor
+    until the caller sets one. Its config is a plain namespace with the
+    two fields the routes read, `rpc.unsafe` (off) and `base.moniker`."""
+
+    def __init__(self, genesis, state, block_store, app, node_id: str, tx_indexer=None, lightclient_reactor=None,
+                 hasher=None, moniker: str = "readnode"):
+        from types import SimpleNamespace
+
+        from tendermint_tpu_torch.abci.client import local_client_creator
+        from tendermint_tpu_torch.types.events import EventSwitch
+
+        self.config = SimpleNamespace(rpc=SimpleNamespace(unsafe=False), base=SimpleNamespace(moniker=moniker))
+        self.genesis = genesis
+        self.state = state
+        self.block_store = block_store
+        self.app = app
+        self.app_conns = local_client_creator(app)()
+        self.node_id = node_id
+        self.tx_indexer = tx_indexer
+        self.lightclient_reactor = lightclient_reactor
+        self.hasher = hasher
+        self.event_switch = EventSwitch()
+        self.switch = self.mempool = self.consensus = self.consensus_reactor = self.priv_validator = None
+        self.blockchain_reactor = self.statesync_reactor = None
+
+    @property
+    def current_state(self):
+        return self.state
+
+    def dial_seed(self, addr: str) -> None:
+        """The `dial_seeds` route's worker: one dial, a failure logged (the
+        JAX node's)."""
+        import logging
+
+        from tendermint_tpu_torch.p2p.tcp import dial
+
+        try:
+            dial(self.switch, addr)
+        except Exception:
+            logging.getLogger(__name__).warning("dial %s failed", addr)

@@ -72,12 +72,21 @@ RANKS: dict[str, int] = {
     "mempool.counter": 52,  # Mempool._counter_lock
     "mempool.notif": 56,  # Mempool._notif_lock (under all lanes in update())
     "mempool.trace": 60,  # Mempool._trace_lock
+    # contention-observatory sampler state (telemetry/profiler.py):
+    # held over sample aggregation only, never across a verify call
+    "telemetry.profiler": 62,
+    # light-client certified-commit cache: shard locks (seq = shard
+    # index) and the index lock (seq = SHARDS), held over map surgery only
+    "lightclient.cache": 63,
     "dispatch.handle": 64,  # VerifyHandle/ChainedHandle._lock
     "batcher.shard": 68,  # VerifiedSigCache shard locks (seq = shard index)
     "batcher.window": 72,  # VerifyCoalescer._cond's lock
     "dispatch.worker": 76,  # DispatchQueue._thread_lock
     "dispatch.state": 80,  # DispatchQueue._state_lock
     "dispatch.global": 84,  # default_dispatch_queue singleton lock
+    # light-client reactor bookkeeping (subscribers / request waits):
+    # released before any send, certify or evidence admission
+    "lightclient.reactor": 86,
     # p2p locks are leaves: held only over dict/counter surgery, never
     # across reactor callbacks or sends.
     "p2p.switch": 88,  # Switch._mtx

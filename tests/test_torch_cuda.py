@@ -873,3 +873,104 @@ def test_port_validator_commits_a_storm_on_the_card(dev, monkeypatch, tmp_path):
     snap = stack.inner.snapshot()
     assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
     stack.close()
+
+
+READ_VALIDATORS = 1000
+READ_CHUNK_BYTES = 1024
+
+
+def test_port_node_state_syncs_and_certifies_on_the_card(dev, monkeypatch):
+    """The port's read path on the card's stack: a 1,000-validator chain
+    of 9 heights is snapshotted at height 5 (1 KiB chunks, a hasher whose
+    device threshold is 64 leaves so the chunk gate runs on the card) and
+    served over localhost TCP to a fresh `testing.StateSyncingNode` (a
+    trust pin at height 2): the anchor's certify launches
+    `madd_chain_entries`, the gate `sha256_masked` and `merkle_level`, and
+    the node ends with the chain's blocks, state and app hash. Then the
+    port's `RPCServer` on that chain feeds a `DynamicCertifier` through
+    `NodeProvider`: each commit one `madd_chain_entries` launch and one
+    finish."""
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.certifiers.certifier import DynamicCertifier
+    from tendermint_tpu_torch.certifiers.node_provider import NodeProvider
+    from tendermint_tpu_torch.db.kv import MemDB
+    from tendermint_tpu_torch.ops import merkle_kernel as MK
+    from tendermint_tpu_torch.ops import sha256_kernel as HS
+    from tendermint_tpu_torch.p2p import tcp
+    from tendermint_tpu_torch.rpc import RPCServer, make_routes
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.services import verifier as V
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.hasher import TreeHasher
+    from tendermint_tpu_torch.services.resilient import ResilientTreeHasher
+    from tendermint_tpu_torch.statesync import SnapshotStore, TrustOptions
+    from tendermint_tpu_torch.testing import ReadNode, SignedChainSim, StateSyncingNode, snapshot_server
+
+    monkeypatch.setattr(V, "_DEFAULTS", {})
+    stack = V.default_verifier(dev)
+    hasher = ResilientTreeHasher(TreeHasher(backend="device", device=dev, min_device_leaves=64))
+
+    def counts():
+        return (TT.sum_entries.launches, TT.fused_chain.launches, TL.ladder.launches,
+                TT.finish_encode_compare.launches, HS.sha256_masked.launches, MK.merkle_level.launches)
+
+    chain_verifier = CoalescingVerifier(stack.inner)
+    store = BlockStore(MemDB())
+    snaps = SnapshotStore(MemDB(), hasher=hasher, chunk_size=READ_CHUNK_BYTES)
+    try:
+        chain = SignedChainSim(n_vals=READ_VALIDATORS, verifier=chain_verifier, hasher=hasher)
+        sw, ss = snapshot_server(store, chain.state, snaps, "read-server", chain.chain_id, hasher=hasher,
+                                 snapshot_interval=5)
+        for h in range(1, 10):
+            block = chain.advance(txs=[b"r%d-%d=%d" % (h, i, i) for i in range(8)])
+            store.save_block(block, block.make_part_set(hasher=hasher), chain.commits[-1])
+            if h <= 5:
+                ss.maybe_take_snapshot(chain.state, app=chain.app)
+    finally:
+        chain_verifier.coalescer.close()
+    manifest = snaps.get_manifest(5)
+    assert manifest is not None and manifest.chunks >= 64
+    lis = tcp.TcpListener(sw, "tcp://127.0.0.1:0")
+    fresh = CoalescingVerifier(stack.inner)
+    node = StateSyncingNode(chain.genesis, "read-fresh", fresh, hasher=hasher,
+                            trust=TrustOptions(height=2, hash_=store.load_block(2).hash()),
+                            discovery_time_s=0.5, chunk_inflight_per_peer=32)
+    before = counts()
+    try:
+        tcp.dial(node.switch, f"127.0.0.1:{lis.port}")
+        assert node.caught_up.wait(timeout=180)
+    finally:
+        node.stop()
+        lis.stop()
+        sw.stop()
+        fresh.coalescer.close()
+    entries, _fused, ladder, finish, sha, levels = (b - a for a, b in zip(before, counts()))
+    assert node.statesync.restored_manifest.height == 5
+    assert node.store.height == 8
+    for h in range(4, 9):
+        assert node.store.load_block(h).hash() == chain.blocks[h - 1].hash()
+    assert node.state.app_hash == chain.blocks[8].header.app_hash
+    assert entries >= 1 and ladder == 0 and finish >= 2
+    assert sha == 1 and levels >= 2 * (manifest.chunks - 1).bit_length()
+
+    rnode = ReadNode(chain.genesis, chain.state, store, chain.app, "read-server", hasher=hasher)
+    server = RPCServer(make_routes(rnode), "tcp://127.0.0.1:0")
+    server.start()
+    certify = CoalescingVerifier(stack.inner)
+    try:
+        provider = NodeProvider(HTTPClient(f"127.0.0.1:{server.port}"))
+        cert = DynamicCertifier(chain.chain_id, chain.state.validators, 5, certify)
+        before = counts()
+        for h in range(6, 10):
+            fc = provider.get_by_height(h)
+            assert fc.height() == h
+            cert.certify(fc)
+        entries, _fused, ladder, finish, _sha, _levels = (b - a for a, b in zip(before, counts()))
+        assert (entries, ladder, finish) == (4, 0, 4)
+    finally:
+        certify.coalescer.close()
+        server.stop()
+    for svc in (stack.inner, hasher):
+        snap = svc.snapshot()
+        assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
+    stack.close()

@@ -5,7 +5,9 @@ names are matched exactly or by the `tendermint_tpu.` prefix.) Nor does
 any of them import `cryptography`, which a host with the card need not have: the
 SecretConnection runs on the port's own X25519, HKDF and
 ChaCha20-Poly1305. `grpc` is imported only inside the functions of
-`abci/grpc_transport.py`, never at module level."""
+`abci/grpc_transport.py` and `rpc/grpc_api.py`, never at module level.
+The read path's modules (light client, state sync, RPC, the node
+provider, health, views, profiler) exist under the JAX names."""
 
 from __future__ import annotations
 
@@ -91,13 +93,64 @@ def test_no_cryptography_import(path):
     assert not bad, f"{path.name} imports cryptography at {bad}"
 
 
+# the modules that may import grpc, each only inside its functions
+GRPC_MODULES = (PORT / "abci" / "grpc_transport.py", PORT / "rpc" / "grpc_api.py")
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_grpc_only_inside_functions_of_the_grpc_transport(path):
     uses = [(line, in_fn) for line, n, in_fn in _imports(path) if _is(n, "grpc")]
-    if path == PORT / "abci" / "grpc_transport.py":
+    if path in GRPC_MODULES:
         assert uses and all(in_fn for _, in_fn in uses), uses
     else:
         assert not uses, f"{path.name} imports grpc at {uses}"
+
+
+READ_PATH_MODULES = (
+    "telemetry/profiler.py", "telemetry/views.py", "telemetry/health.py",
+    "lightclient/cache.py", "lightclient/bisect.py", "lightclient/evidence.py", "lightclient/reactor.py",
+    "lightclient/__init__.py", "statesync/snapshot.py", "statesync/trust.py", "statesync/reactor.py",
+    "statesync/__init__.py", "rpc/server.py", "rpc/websocket.py", "rpc/core.py", "rpc/client.py",
+    "rpc/grpc_api.py", "rpc/__init__.py", "certifiers/node_provider.py",
+)
+
+
+@pytest.mark.parametrize("rel", READ_PATH_MODULES)
+def test_read_path_modules_stand_where_the_jax_package_has_them(rel):
+    port, jax = PORT / rel, REPO / "tendermint_tpu" / rel
+    assert port.is_file() and jax.is_file()
+    bad = [(line, n) for line, n, _ in _imports(port) if _forbidden(n) or _is(n, "cryptography")]
+    assert not bad, bad
+
+
+def _code(path: pathlib.Path) -> str:
+    """The module's AST without its docstrings, the port's package name
+    read as the JAX package's."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and body
+                and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree).replace("tendermint_tpu_torch", "tendermint_tpu")
+
+
+@pytest.mark.parametrize("rel", READ_PATH_MODULES)
+def test_read_path_modules_are_the_jax_modules_apart_from_docstrings(rel):
+    assert _code(PORT / rel) == _code(REPO / "tendermint_tpu" / rel)
+
+
+def test_node_provider_stays_out_of_the_certifiers_exports():
+    """As in the JAX package: `certifiers/__init__.py` does not export
+    `NodeProvider`, which reaches `rpc.client` lazily."""
+    import tendermint_tpu_torch.certifiers as certifiers
+
+    assert not hasattr(certifiers, "NodeProvider")
+    assert not [n for _, n, _ in _imports(PORT / "certifiers" / "__init__.py") if "node_provider" in n or ".rpc" in n]
+    lazy = [(line, n, in_fn) for line, n, in_fn in _imports(PORT / "certifiers" / "node_provider.py")
+            if _is(n, "tendermint_tpu_torch.rpc")]
+    assert lazy and all(in_fn for _, _, in_fn in lazy), lazy
 
 
 def test_import_scanner_sees_nested_and_module_imports(tmp_path):

@@ -64,8 +64,10 @@ def test_rank_table_matches_the_jax_package():
         "consensus.state", "evidence.pool",
         "mempool.avail", "mempool.ingress", "mempool.lane", "mempool.txcache",
         "mempool.wal", "mempool.counter", "mempool.notif", "mempool.trace",
+        "telemetry.profiler", "lightclient.cache",
         "dispatch.handle", "batcher.shard", "batcher.window",
         "dispatch.worker", "dispatch.state", "dispatch.global",
+        "lightclient.reactor",
         "p2p.switch", "p2p.scorer", "p2p.conn.write", "p2p.flowrate",
     }
 
