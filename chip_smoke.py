@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's ed25519 verify path and Merkle hash
 plane once on the card.
 
-    python3 chip_smoke.py            # one CUDA card, about 8 minutes
+    python3 chip_smoke.py            # one CUDA card, about 10-11 minutes
 
 Phases (inputs made from --seed with numpy, signed with the port's
 pure-Python RFC 8032 module, more than 512 signatures at once in a
@@ -158,7 +158,7 @@ as a canonical vote's sign bytes):
    grows 9 blocks of the `data_hash` cell's 65,536 txs of 250 bytes, is
    snapshotted by the serving `StateSyncReactor.maybe_take_snapshot` on
    `default_hasher()` (more than 8,192 chunks of 64 KiB: the chunk gate's
-   card threshold), and 16 more heights of 256 txs; two serving switches
+   card threshold), and 8 more heights of 256 txs; two serving switches
    (the snapshot and `BlockchainReactor(fast_sync=False)`), one with two
    chunks flipped by `corrupt_chunk`, serve a fresh node
    (`testing.StateSyncingNode`: a trust anchor pinned to the chain's hash
@@ -183,11 +183,40 @@ as a canonical vote's sign bytes):
    `readpath_rpc`: `RPCServer(make_routes(...))` on the serving node
    (`testing.ReadNode`), each route checked against the node's objects and
    timed over `HTTPClient`, then `NodeProvider` feeding a
-   `DynamicCertifier` the 16 tail commits, each on `madd_chain_entries`.
+   `DynamicCertifier` the 8 tail commits, each on `madd_chain_entries`.
    Every step holds the launch ledger's records to the kernel wrappers'
    launches (`StepLedger.settle`) and fails on a host fallback or
-   primary failure; its `readpath_*` lines carry the numbers. Then the
-   stack is closed. `--readpath-only` runs phase 0 and this phase alone;
+   primary failure; its `readpath_*` lines carry the numbers.
+   `--readpath-only` runs phase 0 and this phase alone;
+13. node, run after phase 12: the port's own node and command line,
+   each node a process of its own started through
+   `python -m tendermint_tpu_torch testnet` / `init` / `node` on the
+   card, read over its own RPC and from the `launches.jsonl` under its
+   home. `node_net` (BASELINE config 1): `testnet --n 4` at the default
+   `Config` (1 s `timeout_commit`, SecretConnections, PEX, 512,000 B/s
+   links); 16 kvstore txs through `broadcast_tx_commit`, each read back
+   with `abci_query` and `tx` from every node; run a SIGKILLs node 3 at
+   height 5 or later and restarts it on its home, where it must rejoin;
+   run b has TENDERMINT_TPU_MIN_DEVICE_BATCH=0 in the nodes'
+   environment, so every vote drain launches `ladder` and every commit
+   `madd_chain_entries`; both commit 10 heights (run a two past the
+   rejoin) with every block, block hash, commit and app hash equal on
+   every node (heights/s, seconds to rejoin, each node's `/health`).
+   `node_sync` (BASELINE config 3 at full width): phase 10's chain of
+   phase 3's 1,000 keys is written with `State.save` and `BlockStore`
+   on `SQLiteDB` into a home from `init` that a `node` process serves;
+   a fresh node from `init` with the same genesis fast-syncs it through
+   a SecretConnection under the link cap, its windows on the entries
+   chain (the fused chain at 8 commits or more), each with its finish,
+   and ends with the server's blocks and the chain's state and app hash
+   (dial to caught up, blocks/s, window sizes, the server's handshake
+   replay). Each process's kernel launches, its wrappers' counts at exit
+   (a `sitecustomize` counts hook on its path) less the warm-up's, must
+   equal what its ledger's records account for kernel by kernel; a
+   record with an error, a host fallback or primary failure in a node's
+   breakers, a process that exits early or a hash that differs fails.
+   Then the stack is closed. `--node-only` runs phase 0 and this phase
+   alone;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -576,28 +605,23 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def wrappers() -> dict:
-    from tendermint_tpu_torch.ops.ed25519_ladder import ladder
-    from tendermint_tpu_torch.ops.ed25519_tables import (
-        finish_encode_compare,
-        fused_chain,
-        sum_entries,
-    )
-    from tendermint_tpu_torch.ops.merkle_kernel import merkle_level
-    from tendermint_tpu_torch.ops.ripemd160_kernel import ripemd160_masked
-    from tendermint_tpu_torch.ops.sha256_kernel import sha256_masked
-    from tendermint_tpu_torch.ops.sha512_kernel import sha512_masked
+# kernel name -> (module, wrapper): each wrapper counts its launches
+WRAPPERS = {
+    "madd_chain_entries": ("tendermint_tpu_torch.ops.ed25519_tables", "sum_entries"),
+    "madd_chain_fused": ("tendermint_tpu_torch.ops.ed25519_tables", "fused_chain"),
+    "ladder": ("tendermint_tpu_torch.ops.ed25519_ladder", "ladder"),
+    "finish_encode_compare": ("tendermint_tpu_torch.ops.ed25519_tables", "finish_encode_compare"),
+    "sha256_masked": ("tendermint_tpu_torch.ops.sha256_kernel", "sha256_masked"),
+    "ripemd160_masked": ("tendermint_tpu_torch.ops.ripemd160_kernel", "ripemd160_masked"),
+    "sha512_masked": ("tendermint_tpu_torch.ops.sha512_kernel", "sha512_masked"),
+    "merkle_level": ("tendermint_tpu_torch.ops.merkle_kernel", "merkle_level"),
+}
 
-    return {
-        "madd_chain_entries": sum_entries,
-        "madd_chain_fused": fused_chain,
-        "ladder": ladder,
-        "finish_encode_compare": finish_encode_compare,
-        "sha256_masked": sha256_masked,
-        "ripemd160_masked": ripemd160_masked,
-        "sha512_masked": sha512_masked,
-        "merkle_level": merkle_level,
-    }
+
+def wrappers() -> dict:
+    import importlib
+
+    return {name: getattr(importlib.import_module(mod), attr) for name, (mod, attr) in WRAPPERS.items()}
 
 
 def counts() -> dict:
@@ -1267,6 +1291,7 @@ def _launched(c: dict, names, what: str, phase: str = "stack") -> None:
 
 # -- telemetry: the launch ledger, spans, the flight recorder ----------------
 
+REPO = pathlib.Path(__file__).resolve().parent
 OUT = pathlib.Path("chiprun_out")
 LEDGER_FILE = "launches.jsonl"
 SPANS_FILE = "spans.jsonl"
@@ -2104,14 +2129,15 @@ STATE_CHANGE = 10  # height 2 swaps 1 in STATE_CHANGE validators (10% of the pow
 REPLAY_HEIGHTS = 17  # 16 FullCommits after the first height, one certify_batch
 
 
-def smoke_chain(inp, keys, app, verifier, hasher, chain_id, signed=None):
+def smoke_chain(inp, keys, app, verifier, hasher, chain_id, signed=None, db=None):
     """`tendermint_tpu_torch.testing.ChainSim` over the smoke's keys: the
     genesis set is `keys` of `inp` at power TYPES_POWER, and each commit's
     precommits are signed directly with the validators' seeds (`seeds`,
     by address), with no check of each vote as it is added: the chain's
     own verify of the commit is what the phase measures. Chains given one
     `signed` dict share their commits by block id (signing is
-    deterministic, so a block two chains both made is signed once)."""
+    deterministic, so a block two chains both made is signed once). The
+    state lives in `db` (a `MemDB` by default)."""
     from tendermint_tpu_torch.crypto import PubKey
     from tendermint_tpu_torch.db.kv import MemDB
     from tendermint_tpu_torch.testing import ChainSim
@@ -2135,7 +2161,8 @@ def smoke_chain(inp, keys, app, verifier, hasher, chain_id, signed=None):
 
     gen = GenesisDoc(chain_id=chain_id, genesis_time=TYPES_TIME_NS,
                      validators=[GenesisValidator(pub_key=PubKey(inp.pubs[k]), power=TYPES_POWER) for k in keys])
-    chain = SmokeChain(app=app, db=MemDB(), chain_id=chain_id, hasher=hasher, verifier=verifier, genesis=(gen, []))
+    chain = SmokeChain(app=app, db=db if db is not None else MemDB(), chain_id=chain_id, hasher=hasher,
+                       verifier=verifier, genesis=(gen, []))
     chain.seeds = {PubKey(inp.pubs[k]).address: inp.seeds[k] for k in keys}
     return chain
 
@@ -3149,6 +3176,7 @@ def run_consensus_net(stack, inp, sync) -> dict:
     for every launch of the step (`StepLedger.settle`)."""
     from collections import Counter
 
+    from tendermint_tpu_torch.consensus.round_state import RoundStepType
     from tendermint_tpu_torch.crypto import PrivKey
     from tendermint_tpu_torch.mempool import make_signed_tx
     from tendermint_tpu_torch.services.batcher import CoalescingVerifier
@@ -3176,7 +3204,9 @@ def run_consensus_net(stack, inp, sync) -> dict:
                 if nd.cs.fatal_error is not None:
                     raise AssertionError(f"consensus_net: node {nd.index} halted: {nd.cs.fatal_error!r}")
             if time.time() > deadline:
-                raise AssertionError(f"consensus_net: heights {[nd.height for nd in nodes]}, waiting for {top}")
+                at = [(rs.height, rs.round, RoundStepType.name(rs.step))
+                      for rs in (nd.cs.get_round_state() for nd in nodes)]
+                raise AssertionError(f"consensus_net: (height, round, step) {at}, waiting for height {top}")
             time.sleep(0.005)
 
     led = StepLedger("consensus", "net")
@@ -3267,7 +3297,9 @@ def run_consensus(stack, inp, sync, n: int) -> dict:
 READ_CHAIN = "chip-smoke-readpath"
 READ_BIG_BLOCKS = 9  # blocks of TXS txs: the snapshot's payload passes READ_MIN_CHUNKS chunks
 READ_MIN_CHUNKS = 8192  # the chunk gate's leaf count at which the hasher takes the card
-READ_TAIL_HEIGHTS = 16  # heights of READ_TAIL_TXS txs after the snapshot (the anchor and the tail)
+# heights of READ_TAIL_TXS txs after the snapshot (the anchor and the
+# tail); once 16, cut to 8 to keep the whole run within half its limit
+READ_TAIL_HEIGHTS = 8
 READ_TAIL_TXS = 256
 READ_TRUST_HEIGHT = 4  # the fresh node's trust pin
 READ_CORRUPT = (0, 1)  # chunks corrupted in server a's store: the pool asks a for one of them first
@@ -3968,6 +4000,744 @@ def run_readpath(stack, inp, sync, ns: int) -> dict:
     return rep
 
 
+# -- phase 13: the port's own node and CLI, each node a process of its own --
+
+NODE_NET_CHAIN = "chip-smoke-node-net"
+NODE_NET_N = 4
+NODE_NET_HEIGHTS = 10  # heights a run commits on every node
+NODE_NET_TXS = 16
+NODE_KILLED = 3  # run a: this node is SIGKILLed at NODE_KILL_AT or later, then restarted
+NODE_KILL_AT = 5
+# run b's minimum device batch (TENDERMINT_TPU_MIN_DEVICE_BATCH in the
+# nodes' environment): every vote drain and commit reaches the card
+NODE_NET_RUNS = (("a", None), ("b", 0))
+NODE_UP_TIMEOUT_S = 120.0  # a node process's start to its "node ... up" line
+NODE_NET_TIMEOUT_S = 180.0
+NODE_SYNC_TIMEOUT_S = 300.0
+NODE_STOP_TIMEOUT_S = 60.0
+NODE_POLL_S = 0.02
+NODE_LOGS = "nodes"  # OUT/nodes/: each node process's output
+NODE_COUNTS_ENV = "CHIP_SMOKE_KERNEL_COUNTS"
+# Put first on the node processes' path as `sitecustomize`: at the
+# interpreter's exit it writes the port's kernel wrappers' launch counts
+# (WRAPPERS, of the wrapper modules the process imported) and, for each
+# call of TIMED, its seconds and the wall-clock time it ended at
+# (`time.time()`) to the file the environment names, and when a call of
+# a key in MARKS ends, it touches that file's name + "." + the key. It
+# runs the interpreter's own sitecustomize first, which it shadows. The
+# timers wrap the classes' methods as their modules are first imported.
+TIMED = {
+    "tendermint_tpu_torch.consensus.replay": (("Handshaker", "handshake", "handshake_s"),),
+    "tendermint_tpu_torch.node.node": (("Node", "__init__", "node_init_s"), ("Node", "start", "node_start_s")),
+    "tendermint_tpu_torch.consensus.state": (("ConsensusState", "_reconstruct_last_commit", "last_commit_s"),),
+    # the warm-up thread's body: the kernels' first use on the card
+    "tendermint_tpu_torch.services.verifier": (("TableBatchVerifier", "_first_use", "warm_first_use_s"),),
+}
+# a node is stopped only once its warm-up has ended, so that each life's
+# launches hold exactly one warm-up (an exit cuts a running warm-up short)
+MARKS = ("warm_first_use_s",)
+COUNTS_HOOK = '''"""Written by chip_smoke.py for the node processes it starts."""
+import atexit
+import importlib.util
+import json
+import os
+import sys
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+for _dir in sys.path:
+    _path = os.path.join(_dir or ".", "sitecustomize.py")
+    if os.path.abspath(_dir or ".") != _HERE and os.path.isfile(_path):
+        _spec = importlib.util.spec_from_file_location("_shadowed_sitecustomize", _path)
+        _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+        break
+
+WRAPPERS = %(wrappers)r
+TIMED = %(timed)r
+MARKS = %(marks)r
+_SECONDS = {}
+
+
+def _timer(cls, attr, key):
+    fn = getattr(cls, attr)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _SECONDS.setdefault(key, []).append((time.perf_counter() - t0, time.time()))
+            if key in MARKS:
+                open(os.environ[%(env)r] + "." + key, "w").close()
+
+    setattr(cls, attr, timed)
+
+
+class _TimerFinder:
+    """Finds the modules of TIMED as the path would, and wraps their
+    methods once each module has run."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name not in TIMED:
+            return None
+        sys.meta_path.remove(self)
+        try:
+            spec = importlib.util.find_spec(name)
+        finally:
+            sys.meta_path.insert(0, self)
+        if spec is None:
+            return None
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            for cls, attr, key in TIMED[name]:
+                _timer(getattr(module, cls), attr, key)
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+def _dump():
+    counts = {}
+    for name, (mod, attr) in WRAPPERS.items():
+        m = sys.modules.get(mod)
+        counts[name] = int(getattr(m, attr).launches) if m is not None else 0
+    with open(os.environ[%(env)r], "w") as f:
+        json.dump({"counts": counts, "seconds": _SECONDS}, f)
+
+
+if os.environ.get(%(env)r):
+    sys.meta_path.insert(0, _TimerFinder())
+    atexit.register(_dump)
+'''
+
+
+def port_cli(*commands) -> None:
+    """`python -m tendermint_tpu_torch <args>` for each argument tuple of
+    `commands`, all at once (each process spends seconds importing torch),
+    each to its end."""
+    procs = [(args, subprocess.Popen([sys.executable, "-m", "tendermint_tpu_torch", *map(str, args)], cwd=REPO,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for args in commands]
+    for args, proc in procs:
+        _out, err = proc.communicate(timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"node: `tendermint_tpu_torch {' '.join(map(str, args))}` exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+
+
+# consecutive ports for the nodes are taken below the kernel's usual
+# ephemeral range (32768 and up), where outbound links take theirs
+NODE_PORTS = (10000, 32000)
+
+
+def free_port_base(n: int, avoid=()) -> int:
+    """The first of `n` consecutive free localhost ports, none within 64
+    of a base in `avoid`."""
+    import socket
+
+    rng = np.random.default_rng()
+    for _ in range(200):
+        base = int(rng.integers(NODE_PORTS[0], NODE_PORTS[1] - n))
+        if any(abs(base - other) < 64 for other in avoid):
+            continue
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError(f"node: no {n} consecutive free ports")
+
+
+class NodeProcess:
+    """One `python -m tendermint_tpu_torch node --home HOME` process. Its
+    output goes to OUT/nodes/; the time of its "node ... up" line
+    (printed once `Node.start()` returned: stores, handshake, listener,
+    RPC and the seeds' dials done) is `up_at`; `terminate()` sends it
+    SIGTERM, as an operator stops a node, and `stop()` waits for its exit
+    and returns the kernel wrappers' launch counts the counts hook wrote
+    then; `seconds` then holds the hook's timings of this life (TIMED:
+    each call's seconds and wall-clock end)."""
+
+    def __init__(self, name: str, home, hook_dir, args=(), env=None):
+        self.name, self.home = name, str(home)
+        self.counts_path = os.path.join(self.home, "kernel_counts.json")
+        self.cmd = [sys.executable, "-m", "tendermint_tpu_torch", "node", "--home", self.home, *map(str, args)]
+        self.env = dict(os.environ, **(env or {}))
+        self.env["PYTHONPATH"] = os.pathsep.join([str(hook_dir), str(REPO)])
+        self.env[NODE_COUNTS_ENV] = self.counts_path
+        self.proc = None
+        self.lives = 0
+
+    def start(self) -> None:
+        import threading
+
+        self.warm_mark = self.counts_path + ".warm_first_use_s"
+        for path in (self.counts_path, self.warm_mark):
+            if os.path.exists(path):
+                os.unlink(path)
+        (OUT / NODE_LOGS).mkdir(parents=True, exist_ok=True)
+        self.log_path = OUT / NODE_LOGS / f"{self.name}.{self.lives}.log"
+        err = open(self.log_path, "wb")
+        self.up_at = None
+        self.started_at = time.perf_counter()
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, env=self.env, stdout=subprocess.PIPE, stderr=err)
+        err.close()
+        self.lives += 1
+        threading.Thread(target=self._read, args=(self.proc,), daemon=True).start()
+
+    def _read(self, proc) -> None:
+        with open(OUT / NODE_LOGS / f"{self.name}.{self.lives - 1}.out", "wb") as out:
+            for line in proc.stdout:
+                if self.up_at is None and b" up: p2p " in line:
+                    self.up_at, self.up_wall = time.perf_counter(), time.time()
+                out.write(line)
+                out.flush()
+
+    def tail(self) -> str:
+        try:
+            return self.log_path.read_text(errors="replace")[-3000:]
+        except OSError:
+            return ""
+
+    def check(self) -> None:
+        """Fails when the process has exited."""
+        rc = self.proc.poll()
+        if rc is not None:
+            raise AssertionError(f"node: {self.name} exited early with {rc}:\n{self.tail()}")
+
+    def wait_up(self) -> float:
+        """Seconds from the process's start to its "up" line."""
+        deadline = time.time() + NODE_UP_TIMEOUT_S
+        while self.up_at is None:
+            self.check()
+            if time.time() > deadline:
+                raise AssertionError(f"node: {self.name} not up in {NODE_UP_TIMEOUT_S} s:\n{self.tail()}")
+            time.sleep(NODE_POLL_S)
+        return self.up_at - self.started_at
+
+    def kill(self) -> None:
+        import signal
+
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=NODE_STOP_TIMEOUT_S)
+
+    def terminate(self, wait_warm: bool) -> None:
+        """SIGTERM, once the warm-up has ended where `wait_warm` (a node on
+        the card warms up; one on the CPU does not)."""
+        import signal
+
+        deadline = time.time() + NODE_UP_TIMEOUT_S
+        while wait_warm and not os.path.exists(self.warm_mark):
+            self.check()
+            if time.time() > deadline:
+                raise AssertionError(f"node: {self.name}'s kernel warm-up did not end in {NODE_UP_TIMEOUT_S} s")
+            time.sleep(NODE_POLL_S)
+        self.check()
+        self.proc.send_signal(signal.SIGTERM)
+
+    def stop(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=NODE_STOP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"node: {self.name} did not stop in {NODE_STOP_TIMEOUT_S} s")
+        if rc != 0:
+            raise AssertionError(f"node: {self.name} stopped with {rc}:\n{self.tail()}")
+        with open(self.counts_path) as f:
+            out = json.load(f)
+        self.seconds = out["seconds"]
+        return out["counts"]
+
+    def warm_after_up(self) -> float | None:
+        """Seconds from this life's "up" line to the end of its kernels'
+        warm-up on the card (negative: it ended before), or None."""
+        ends = [end for _s, end in self.seconds.get("warm_first_use_s", ())]
+        return max(ends) - self.up_wall if ends else None
+
+    def reap(self) -> None:
+        """Ends the process if it still runs (a failed step's cleanup)."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.kill()
+
+
+def stop_all(nodes, warm: dict) -> dict:
+    """Each node's launch counts, once SIGTERM has stopped them all (each
+    after its warm-up of `warm`'s launches, if any, has ended)."""
+    for nd in nodes:
+        nd.terminate(wait_warm=any(warm.values()))
+    return {nd.name: nd.stop() for nd in nodes}
+
+
+def write_counts_hook(dirpath) -> None:
+    pathlib.Path(dirpath, "sitecustomize.py").write_text(
+        COUNTS_HOOK % {"wrappers": WRAPPERS, "timed": TIMED, "marks": MARKS, "env": NODE_COUNTS_ENV})
+
+
+def warm_launches(dev) -> dict:
+    """The launches of one `TableBatchVerifier.warm_kernels()` first use
+    (each route once on dummy lanes), which every node on the card makes
+    as it starts and which no launch-ledger record accounts for."""
+    from tendermint_tpu_torch.services.verifier import TableBatchVerifier
+
+    c0 = counts()
+    TableBatchVerifier(device=dev)._first_use()
+    c1 = counts()
+    return {k: c1[k] - c0[k] for k in c1}
+
+
+def node_ledger(home) -> list:
+    """The launch-ledger records under a node's home."""
+    path = pathlib.Path(home, "data", LEDGER_FILE)
+    return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+
+
+def ledger_kernels(records, n_vals: int) -> dict:
+    """Kernel launches by name that launch-ledger records account for: a
+    `verify` record one `ladder`, a `tables` record of K commits of
+    `n_vals` lanes one `madd_chain_fused` at K >= FUSED_MIN_STACK and one
+    `madd_chain_entries` below it, each one finish; host records none."""
+    from tendermint_tpu_torch.ops.ed25519_tables import FUSED_MIN_STACK
+
+    out = dict.fromkeys(WRAPPERS, 0)
+    for r in records:
+        if r.get("error") or r.get("backend", "host") == "host":
+            continue
+        n = int(r.get("mesh_width", 1))
+        if r["kind"] == "verify":
+            out["ladder"] += n
+        elif r["kind"] == "tables":
+            k = int(r["rows"]) // n_vals
+            out["madd_chain_fused" if k >= FUSED_MIN_STACK else "madd_chain_entries"] += n
+        else:
+            raise AssertionError(f"node: a {r['kind']} record on a node's verify path: {r}")
+        out["finish_encode_compare"] += n
+    return out
+
+
+def node_account(name: str, got: dict, warm: dict, records, n_vals: int) -> dict:
+    """A node process's kernel launches, its wrappers' counts at exit less
+    the warm-up's, which its ledger's records must account for kernel by
+    kernel; a record with an error fails."""
+    failed = [r for r in records if r.get("error")]
+    if failed:
+        raise AssertionError(f"node: {name}'s ledger has records with an error: {failed[:3]}")
+    launched = {k: got[k] - warm[k] for k in got}
+    want = ledger_kernels(records, n_vals)
+    if launched != want:
+        raise AssertionError(f"node: {name}'s wrappers launched {launched} beyond the warm-up {warm}, "
+                             f"its ledger's records account for {want}")
+    return launched
+
+
+def node_device_health(name: str, client) -> dict:
+    """The node's `/health` status and its verifier's and hasher's
+    resilient wrappers (`dump_telemetry`'s breakers): a host fallback or
+    a primary failure fails."""
+    health = client._call("health")
+    breakers = client._call("dump_telemetry", spans=0)["breakers"]
+    for kind in ("verifier", "hasher"):
+        b = breakers.get(kind, {})
+        if b.get("fallback_calls", 0) or b.get("total_failures", 0) or b.get("state", "closed") != "closed":
+            raise AssertionError(f"node: {name}'s {kind}: {b}")
+    return {"status": health["status"], "ready": health["ready"]}
+
+
+def height_split(home, lo: int, hi: int) -> dict:
+    """What the height ledger under a node's home says of heights lo..hi:
+    the median seconds of a height and of each of its phases, the
+    heights that needed a round past 0, and each critical path's
+    count."""
+    from collections import Counter
+
+    recs = [json.loads(line) for line in pathlib.Path(home, "data", "heights.jsonl").read_text().splitlines()
+            if line.strip()]
+    recs = [r for r in recs if lo <= r["height"] <= hi]
+    if not recs:
+        return {"heights": 0}
+    phases = sorted({ph for r in recs for ph in r.get("phases", {})})
+    return {
+        "heights": len(recs),
+        "height_s_median": statistics.median(r["height_s"] for r in recs),
+        "phase_s_median": {ph: statistics.median(r["phases"][ph]["s"] for r in recs if ph in r["phases"])
+                           for ph in phases},
+        "slowest": max(((r["height"], r["height_s"], r.get("critical_path")) for r in recs), key=lambda x: x[1]),
+        "rounds_past_0": sum(1 for r in recs if r.get("round", 0) > 0),
+        "critical_path": dict(Counter(r.get("critical_path") for r in recs)),
+    }
+
+
+def metric_total(client, name: str) -> float:
+    """A counter's value over all its series, from a node's `dump_telemetry`."""
+    fam = client._call("dump_telemetry", spans=0)["metrics"].get(name, {"series": []})
+    return float(sum(ser["value"] for ser in fam["series"]))
+
+
+def node_client(port: int):
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+
+    return HTTPClient(f"127.0.0.1:{port}", timeout=60.0)
+
+
+def node_heights(clients) -> list:
+    return [c.status()["sync_info"]["latest_block_height"] for c in clients]
+
+
+def wait_nodes(nodes, pred, what: str, timeout: float):
+    """Polls `pred()` until it returns a true value, failing when a node
+    process exits or the time runs out."""
+    deadline = time.time() + timeout
+    while True:
+        for nd in nodes:
+            nd.check()
+        got = pred()
+        if got:
+            return got
+        if time.time() > deadline:
+            raise AssertionError(f"node: {what} not reached in {timeout} s")
+        time.sleep(NODE_POLL_S)
+
+
+def same_chain(what: str, clients, top: int) -> dict:
+    """Every node's block hashes (`blockchain`), `block` at heights 1..top
+    and `commit` at 1..top-1 (the canonical one, from the next block) are
+    byte-equal across nodes; returns each height's txs."""
+    for lo in range(1, top + 1, 20):
+        hi = min(lo + 19, top)
+        if len({json.dumps(c.blockchain(lo, hi)["block_metas"]) for c in clients}) != 1:
+            raise AssertionError(f"node {what}: the nodes' block hashes differ at heights {lo}-{hi}")
+    txs = {}
+    for h in range(1, top + 1):
+        blocks = {json.dumps(c.block(h), sort_keys=True) for c in clients}
+        if len(blocks) != 1:
+            raise AssertionError(f"node {what}: the nodes' blocks differ at height {h}")
+        txs[h] = json.loads(blocks.pop())["block"]["txs"]
+        if h < top:
+            commits = [c.commit(h) for c in clients]
+            if not all(cm["canonical"] for cm in commits) or len({json.dumps(cm, sort_keys=True)
+                                                                    for cm in commits}) != 1:
+                raise AssertionError(f"node {what}: the nodes' commits differ at height {h}")
+    return txs
+
+
+def same_app_hash(what: str, clients) -> dict:
+    """Nodes at one height report one app hash, and it is the one the next
+    block's header carries wherever a node has that block."""
+    by_height: dict = {}
+    for c in clients:
+        si = c.status()["sync_info"]
+        by_height.setdefault(si["latest_block_height"], set()).add(si["latest_app_hash"])
+    for h, hashes in by_height.items():
+        if len(hashes) != 1:
+            raise AssertionError(f"node {what}: app hashes {hashes} at height {h}")
+        for c in clients:
+            try:
+                header = c.block(h + 1)["block"]["header"]
+            except Exception:
+                continue  # this node has no block h + 1
+            if header["app_hash"] not in hashes:
+                raise AssertionError(f"node {what}: app hash {hashes} at {h}, block {h + 1} carries "
+                                     f"{header['app_hash']}")
+    return {h: next(iter(v)) for h, v in by_height.items()}
+
+
+def run_node_net(out, base: int, hook_dir, inp, run: str, min_batch, warm: dict) -> dict:
+    """Phase 13, `node_net` run `run` (BASELINE config 1) on the four homes
+    that `testnet --n 4` wrote under `out` with ports from `base`, at the
+    default `Config` (1 s `timeout_commit`,
+    SecretConnections, PEX, 512,000 B/s links) and four `node` processes
+    run on the card, with TENDERMINT_TPU_MIN_DEVICE_BATCH=`min_batch` when
+    given. NODE_NET_TXS kvstore txs go in through `broadcast_tx_commit`
+    (node i % 4 for tx i) and each is read back with `abci_query` and `tx`
+    from every node. Run a SIGKILLs node NODE_KILLED at height
+    NODE_KILL_AT or later and restarts it on its home: it must replay its
+    WAL, catch up and commit with the others again. Every node commits
+    NODE_NET_HEIGHTS heights (and, in run a, two past the restarted node's
+    rejoin); the blocks and commits of every height and the app hashes
+    are equal on every node; each process's launches are accounted for by
+    its ledger; its wrappers and breakers saw no fallback or failure."""
+    import threading
+
+    env = {} if min_batch is None else {"TENDERMINT_TPU_MIN_DEVICE_BATCH": str(min_batch)}
+    homes = [out / f"node{i}" for i in range(NODE_NET_N)]
+    nodes = [NodeProcess(f"net_{run}_node{i}", homes[i], hook_dir, env=env) for i in range(NODE_NET_N)]
+    clients = [node_client(base + 2 * i + 1) for i in range(NODE_NET_N)]
+    rng = np.random.default_rng(inp.seed + 130 + len(run))
+    txs = [b"node-%s-%02d=%s" % (run.encode(), i, rng.bytes(8).hex().encode()) for i in range(NODE_NET_TXS)]
+    rep: dict = {"run": run, "nodes": NODE_NET_N, "min_device_batch": min_batch, "txs": NODE_NET_TXS}
+    launches: dict = {}
+    try:
+        for nd in nodes:
+            nd.start()
+        rep["up_s"] = [nd.wait_up() for nd in nodes]
+        h0 = wait_nodes(nodes, lambda: min(node_heights(clients)) >= 1 and min(node_heights(clients)),
+                        "a first height on every node", NODE_NET_TIMEOUT_S)
+        t0 = time.perf_counter()
+        results: list = [None] * NODE_NET_TXS
+
+        def send(i):
+            try:
+                results[i] = clients[i % NODE_NET_N].broadcast_tx_commit(txs[i])
+            except Exception as e:  # reported below with the others
+                results[i] = e
+
+        senders = [threading.Thread(target=send, args=(i,), daemon=True) for i in range(NODE_NET_TXS)]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join(timeout=NODE_NET_TIMEOUT_S)
+        bad = [(i, r) for i, r in enumerate(results)
+               if not isinstance(r, dict) or r["check_tx"]["code"] != 0 or r["deliver_tx"]["code"] != 0]
+        if bad:
+            raise AssertionError(f"node_net {run}: broadcast_tx_commit answered {bad[:3]}")
+        rep["tx_commit_s"] = time.perf_counter() - t0
+        rep["tx_heights"] = sorted({r["height"] for r in results})
+        target = h0 + NODE_NET_HEIGHTS
+        if run == "a":
+            killed, others = nodes[NODE_KILLED], [c for i, c in enumerate(clients) if i != NODE_KILLED]
+            wait_nodes(nodes, lambda: min(node_heights(clients)) >= NODE_KILL_AT, f"height {NODE_KILL_AT}",
+                       NODE_NET_TIMEOUT_S)
+            rep["killed_at"] = clients[NODE_KILLED].status()["sync_info"]["latest_block_height"]
+            killed.kill()
+            t_restart = time.perf_counter()
+            killed.start()
+            rep["restart_up_s"] = killed.wait_up()
+            ahead = max(node_heights(others))
+
+            def rejoined():
+                st = clients[NODE_KILLED].status()["sync_info"]
+                return not st["catching_up"] and st["latest_block_height"] >= ahead and st["latest_block_height"]
+
+            rep["rejoin_height"] = wait_nodes(nodes, rejoined, f"{killed.name}'s rejoin", NODE_NET_TIMEOUT_S)
+            rep["rejoin_s"] = time.perf_counter() - t_restart
+            rep["others_at_restart"] = ahead
+            target = max(target, rep["rejoin_height"] + 2)
+        wait_nodes(nodes, lambda: min(node_heights(clients)) >= target, f"height {target} on every node",
+                   NODE_NET_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        rep.update({"from_height": h0, "to_height": target, "s": secs, "heights_per_s": (target - h0) / secs})
+        rep["height_split_node0"] = height_split(homes[0], h0 + 1, target)
+        top = min(node_heights(clients))
+        by_height = same_chain(f"net {run}", clients, top)
+        # every tx on every node. A restarted validator's mempool replays
+        # its WAL, committed txs included, and `KVStoreApp` admits them
+        # again, so in run a a tx may be committed once more after the
+        # restart (the JAX package's and the reference's behaviour)
+        from tendermint_tpu_torch.types.tx import tx_hash
+
+        rep["recommitted"] = []
+        for i, tx in enumerate(txs):
+            key, _, value = tx.partition(b"=")
+            heights = [h for h, hx in by_height.items() for t in hx if t == tx.hex()]
+            later = [h for h in heights[1:] if run == "a" and h > rep["killed_at"]]
+            if not heights or heights[0] != results[i]["height"] or heights[1:] != later:
+                raise AssertionError(f"node_net {run}: tx {i} committed at heights {heights}, "
+                                     f"broadcast_tx_commit said {results[i]['height']}")
+            if later:
+                rep["recommitted"].append((i, heights))
+            answers = set()
+            for n, c in enumerate(clients):
+                q = c.abci_query(data=key)
+                if bytes.fromhex(q["value"]) != value:
+                    raise AssertionError(f"node_net {run}: node {n} answers {q} for tx {i}'s key")
+                got = c.tx(tx_hash(tx))
+                if bytes.fromhex(got["tx"]) != tx or got["height"] != heights[-1]:
+                    raise AssertionError(f"node_net {run}: node {n}'s tx {i} is {got}, committed at {heights}")
+                answers.add(json.dumps(got, sort_keys=True))
+            if len(answers) != 1:
+                raise AssertionError(f"node_net {run}: the nodes' `tx` answers for tx {i} differ: {answers}")
+        rep["app_hashes"] = same_app_hash(f"net {run}", clients)
+        rep["checked_heights"] = top
+        rep["health"] = [node_device_health(nd.name, c) for nd, c in zip(nodes, clients)]
+        got = stop_all(nodes, warm)
+    finally:
+        for nd in nodes:
+            nd.reap()
+    for nd in nodes:
+        launches[nd.name] = node_account(nd.name, got[nd.name], warm, node_ledger(nd.home), NODE_NET_N)
+    rep["launches"] = launches
+    # each process's last life: Node.__init__ (the handshake within it) and Node.start
+    rep["node_seconds"] = {nd.name: nd.seconds for nd in nodes}
+    rep["warm_after_up_s"] = {nd.name: nd.warm_after_up() for nd in nodes}
+    total = {k: sum(c[k] for c in launches.values()) for k in WRAPPERS}
+    rep["launches_total"] = total
+    if min_batch == 0 and any(c["ladder"] == 0 or c["madd_chain_entries"] == 0 for c in launches.values()):
+        raise AssertionError(f"node_net {run}: at minimum batch 0 every node launches `ladder` and the entries "
+                             f"chain: {launches}")
+    log({"phase": "node_net", **rep})
+    return rep
+
+
+def run_node_sync(stack, server_home, fresh_home, hook_dir, inp, ns: int, warm: dict) -> dict:
+    """Phase 13, `node_sync` (BASELINE config 3 at full width): phase 10's
+    chain (SYNC_HEIGHTS blocks of SYNC_TXS txs of TX_BYTES over phase 3's
+    `ns` keys, `KVStoreApp`, each commit verified on the stack as it is
+    applied) is written with the port's `State.save` and `BlockStore` on
+    `SQLiteDB` into a home that `init` made, beside its `ns`-validator
+    genesis; a `node` process serves it (`--fast-sync false`: its
+    handshake replays the chain into its app). A second home from `init`
+    with the same genesis runs a fresh `node` whose seeds name the server:
+    at the default `Config` it fast-syncs to the head through a
+    SecretConnection under the 512,000 B/s link cap. The fresh node's
+    ledger must hold its windows (the fused chain at FUSED_MIN_STACK
+    commits or more, the entries chain below, each with its finish) and
+    account for every launch; its blocks must be byte-equal to the
+    server's and its saved state and app hash equal to the chain's at its
+    height."""
+    from tendermint_tpu_torch.abci.apps import KVStoreApp
+    from tendermint_tpu_torch.config import load_config
+    from tendermint_tpu_torch.db.kv import SQLiteDB
+    from tendermint_tpu_torch.ops.ed25519_tables import FUSED_MIN_STACK
+    from tendermint_tpu_torch.services.batcher import CoalescingVerifier
+    from tendermint_tpu_torch.services.hasher import default_hasher
+    from tendermint_tpu_torch.state.state import load_state
+    from tendermint_tpu_torch.testing import chain_store
+
+    rep: dict = {"validators": ns, "heights": SYNC_HEIGHTS, "txs": SYNC_TXS, "tx_bytes": TX_BYTES}
+    # 1. the chain, into the server's home
+    cfg = load_config(str(server_home))
+    rng = np.random.default_rng(inp.seed + 10)  # phase 10's txs
+    state_db, store_db = SQLiteDB(cfg.db_path("state")), SQLiteDB(cfg.db_path("blockstore"))
+    chain_verifier = CoalescingVerifier(stack.inner)
+    states = {}
+    t0 = time.perf_counter()
+    try:
+        chain = smoke_chain(inp, range(ns), KVStoreApp(), chain_verifier, default_hasher(stack.inner.primary.device),
+                            SYNC_CHAIN, db=state_db)
+        for h in range(1, SYNC_HEIGHTS + 1):
+            chain.advance(txs=sync_txs(rng, h))
+            states[h] = (chain.state.to_json(), chain.state.app_hash)
+        chain_store(chain, db=store_db)
+    finally:
+        chain_verifier.coalescer.close()
+        state_db.close()
+        store_db.close()
+    rep["chain_s"] = time.perf_counter() - t0
+    for home in (server_home, fresh_home):
+        chain.genesis.save_as(str(home / "genesis.json"))
+    block_bytes = statistics.median(len(b.encode()) for b in chain.blocks)
+    rep["block_bytes_median"] = block_bytes
+    rep["cap_blocks_per_s"] = NODE_LINK_CAP / block_bytes
+    # 2. the server, then the fresh node
+    base = free_port_base(4)
+    server = NodeProcess("sync_server", server_home, hook_dir,
+                         args=("--p2p-laddr", f"tcp://127.0.0.1:{base}", "--rpc-laddr", f"tcp://127.0.0.1:{base + 1}",
+                               "--fast-sync", "false"))
+    fresh = NodeProcess("sync_fresh", fresh_home, hook_dir,
+                        args=("--p2p-laddr", f"tcp://127.0.0.1:{base + 2}",
+                              "--rpc-laddr", f"tcp://127.0.0.1:{base + 3}", "--seeds", f"127.0.0.1:{base}"))
+    sc, fc = node_client(base + 1), node_client(base + 3)
+    applied = SYNC_HEIGHTS - 1  # the last block's commit is in no block
+    try:
+        server.start()
+        rep["server_up_s"] = server.wait_up()
+        if sc.status()["sync_info"]["latest_block_height"] != SYNC_HEIGHTS:
+            raise AssertionError(f"node_sync: the server serves {sc.status()['sync_info']}")
+        fresh.start()
+        rep["fresh_up_s"] = fresh.wait_up()
+
+        reached: dict = {}  # height -> seconds from the dial it was first seen at
+
+        def caught_up():
+            st = fc.status()["sync_info"]
+            reached.setdefault(st["latest_block_height"], time.perf_counter() - fresh.up_at)
+            return not st["catching_up"] and st["latest_block_height"] >= applied
+
+        wait_nodes((server, fresh), caught_up, "the fresh node's catch-up", NODE_SYNC_TIMEOUT_S)
+        rep["dial_to_caught_up_s"] = time.perf_counter() - fresh.up_at
+        rep["blocks_per_s"] = applied / rep["dial_to_caught_up_s"]
+        # the catch-up's course: seconds from the dial to the first poll
+        # that saw each twelfth of the chain, and the link's bytes
+        rep["seconds_to_height"] = {q: min(t for h, t in reached.items() if h >= q)
+                                    for q in range(12, applied + 1, 12)}
+        rep["recv_bytes"] = metric_total(fc, "tendermint_p2p_recv_bytes_total")
+        rep["recv_mb_s"] = rep["recv_bytes"] / rep["dial_to_caught_up_s"] / 1e6
+        top = fc.status()["sync_info"]["latest_block_height"]
+        for h in range(1, top + 1):
+            got, want = fc.block(h), sc.block(h)
+            if json.dumps(got, sort_keys=True) != json.dumps(want, sort_keys=True):
+                raise AssertionError(f"node_sync: block {h} differs from the server's")
+            if got["block"]["header"]["app_hash"] != chain.blocks[h - 1].header.app_hash.hex():
+                raise AssertionError(f"node_sync: block {h}'s app hash differs from the chain's")
+        rep["health"] = [node_device_health(nd.name, c) for nd, c in ((server, sc), (fresh, fc))]
+        got = stop_all((fresh, server), warm)
+    finally:
+        for nd in (fresh, server):
+            nd.reap()
+    # 3. the fresh node's saved state and app hash, its windows, its launches
+    db = SQLiteDB(load_config(str(fresh_home)).db_path("state"))
+    try:
+        st = load_state(db)
+    finally:
+        db.close()
+    height = st.last_block_height
+    if height < applied or (st.to_json(), st.app_hash) != states[height]:
+        raise AssertionError(f"node_sync: the fresh node's state at height {height} differs from the chain's")
+    rep["fresh_height"] = height
+    rep["server_handshake_s"] = server.seconds["handshake_s"][0][0]  # its replay of the chain into its app
+    rep["warm_after_up_s"] = {nd.name: nd.warm_after_up() for nd in (server, fresh)}
+    rep["node_seconds"] = {nd.name: nd.seconds for nd in (server, fresh)}
+    records = node_ledger(fresh_home)
+    windows = [r for r in records if r.get("queue") == "fastsync" and r["kind"] == "tables"]
+    sizes = [int(r["rows"]) // ns for r in windows]
+    if sum(sizes) < applied or any(r.get("backend", "host") == "host" for r in windows):
+        raise AssertionError(f"node_sync: the fresh node's windows {sizes} (backends "
+                             f"{[r.get('backend') for r in windows]}) do not cover {applied} blocks on the card")
+    rep["window_sizes"] = sizes
+    rep["windows_fused"] = sum(1 for k in sizes if k >= FUSED_MIN_STACK)
+    rep["launches"] = {
+        nd.name: node_account(nd.name, got[nd.name], warm, node_ledger(nd.home), ns) for nd in (server, fresh)
+    }
+    fl = rep["launches"]["sync_fresh"]
+    if fl["madd_chain_fused"] < rep["windows_fused"] or fl["madd_chain_entries"] < len(sizes) - rep["windows_fused"]:
+        raise AssertionError(f"node_sync: windows {sizes} but launches {fl}")
+    log({"phase": "node_sync", **rep})
+    return rep
+
+
+def run_node(stack, inp, ns: int) -> dict:
+    """Phase 13: the port's own node and CLI, each node a process of its
+    own started through `python -m tendermint_tpu_torch`: `node_net` runs
+    a and b, then `node_sync`. The kernel library was built in phase 0, so
+    every process loads it from `build/kernels/`. Launches: the node
+    processes' own, each accounted for by its ledger."""
+    import tempfile
+
+    dev = stack.inner.primary.device
+    warm = warm_launches(dev)
+    log({"phase": "node_warm_launches", **warm})
+    rep: dict = {"warm_launches": warm}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nodes_") as tmp:
+        hook_dir = pathlib.Path(tmp, "hook")
+        hook_dir.mkdir()
+        write_counts_hook(hook_dir)
+        # every home at once: `testnet` for each run of node_net, `init`
+        # for node_sync's server and fresh node
+        nets: dict = {}
+        for run, _mb in NODE_NET_RUNS:
+            nets[run] = (pathlib.Path(tmp, f"net_{run}"), free_port_base(2 * NODE_NET_N, [b for _, b in nets.values()]))
+        sync_homes = (pathlib.Path(tmp, "sync_server"), pathlib.Path(tmp, "sync_fresh"))
+        t0 = time.perf_counter()
+        port_cli(*[("testnet", "--n", NODE_NET_N, "--output", out, "--starting-port", base, "--chain-id", NODE_NET_CHAIN)
+                   for out, base in nets.values()],
+                 *[("init", "--home", home, "--chain-id", SYNC_CHAIN) for home in sync_homes])
+        rep["homes_s"] = time.perf_counter() - t0
+        rep["net"] = [run_node_net(*nets[run], hook_dir, inp, run, mb, warm) for run, mb in NODE_NET_RUNS]
+        rep["sync"] = run_node_sync(stack, *sync_homes, hook_dir, inp, ns, warm)
+    steps = [r["launches_total"] for r in rep["net"]] + list(rep["sync"]["launches"].values())
+    rep["launches"] = {k: sum(c[k] for c in steps) for k in WRAPPERS}
+    log({"phase": "node", "launches": rep["launches"]})
+    return rep
+
+
 MESH_SHARDS = 4
 MESH_REPS = 3  # timed calls a step, median
 MESH_REPROBE_S = 0.2
@@ -4501,6 +5271,42 @@ def run_readpath_only(args) -> dict:
     return report
 
 
+class PhaseClock:
+    """Seconds of wall time from each phase's mark to the next."""
+
+    def __init__(self):
+        self.out: dict = {}
+        self.name, self.t = None, time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.out[self.name] = self.out.get(self.name, 0.0) + now - self.t
+        self.name, self.t = name, now
+
+    def done(self) -> dict:
+        self.mark(None)
+        return self.out
+
+
+def run_node_only(args) -> dict:
+    """`--node-only`: phase 0, then phase 13 alone on `default_verifier()`
+    and the keys a full run makes from the same seed."""
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+    from tendermint_tpu_torch.services.verifier import default_verifier
+
+    report: dict = {"args": vars(args), "env": environment()}
+    inp = Inputs(args.seed, args.sync_validators)
+    stack = default_verifier()
+    check_layers(stack)
+    try:
+        report["node"] = run_node(stack, inp, args.sync_validators)
+    finally:
+        stack.close()
+        default_dispatch_queue().close()
+    return report
+
+
 def run(args) -> dict:
     import torch
 
@@ -4512,8 +5318,10 @@ def run(args) -> dict:
 
     sync = torch.cuda.synchronize
     report: dict = {"args": vars(args)}
+    phase_clock = PhaseClock()
 
     # -- phase 0: environment and build --------------------------------------
+    phase_clock.mark("0")
     report["env"] = env = environment()
     clock_hz = float(env["clocks_max_sm_mhz"].split()[0]) * 1e6
     sms = env["sms"]
@@ -4528,6 +5336,7 @@ def run(args) -> dict:
     launches: dict = {}
 
     # -- phase 2: consensus commit, N validators, K = 1 -----------------------
+    phase_clock.mark("2")
     n = args.validators
     t0 = time.perf_counter()
     pubs2, msgs2, sigs2, exp2 = commit_inputs(inp, n)
@@ -4563,6 +5372,7 @@ def run(args) -> dict:
     report["consensus"] = p2
 
     # -- phase 3: fast-sync window, N_sync validators, K = window ------------
+    phase_clock.mark("3")
     ns, k = args.sync_validators, args.window
     t0 = time.perf_counter()
     pubs3, commits3, exp3 = window_inputs(inp, ns, k)
@@ -4597,6 +5407,7 @@ def run(args) -> dict:
     report["fast_sync"] = p3
 
     # -- phase 4: flat batch of distinct keys ---------------------------------
+    phase_clock.mark("4")
     nf = args.flat
     t0 = time.perf_counter()
     pubs4, msgs4, sigs4, exp4 = flat_inputs(inp, nf)
@@ -4634,11 +5445,13 @@ def run(args) -> dict:
     dev = verifier.device
 
     # -- phase 5: the hash plane ----------------------------------------------
+    phase_clock.mark("5")
     hrep, hlaunches, (txs, trees, chunks, sha512_msgs) = run_hash(args.seed, dev, sync)
     launches.update(hlaunches)
     report["hash"] = hrep
 
     # -- phase 6: the same work through the node's stack ---------------------
+    phase_clock.mark("6")
     report["stack"] = run_stack(
         stack, inp, sync,
         commit=(pubs2, commit, exp2, p2["warm_commit_s_median"]),
@@ -4649,6 +5462,7 @@ def run(args) -> dict:
     )
 
     # -- phase 8: the port's own domain types through the same stack --------
+    phase_clock.mark("8")
     report["types"] = run_types(
         stack, inp, sync,
         sizes=(n, ns, k, nf),
@@ -4657,23 +5471,34 @@ def run(args) -> dict:
     )
 
     # -- phase 9: block execution and the light client on the port's code --
+    phase_clock.mark("9")
     report["state"], report["certifiers"] = run_state(stack, inp, sync, sizes=(n, ns, k), reps=args.reps)
 
     # -- phase 10: a fresh node fast-syncs over the port's own network ------
+    phase_clock.mark("10")
     report["sync"] = run_sync(stack, inp, sync, ns)
 
     # -- phase 11: the mempool, a 10k-validator storm and a 4-validator net --
+    phase_clock.mark("11")
     report["consensus_phase"] = run_consensus(stack, inp, sync, n)
 
     # -- phase 12: the read path (state sync, the light client, RPC) --------
+    phase_clock.mark("12")
     report["readpath"] = run_readpath(stack, inp, sync, ns)
     for name, v in report["readpath"]["launches"].items():
+        launches[name] = launches.get(name, 0) + v
+
+    # -- phase 13: the port's own node and CLI, node processes --------------
+    phase_clock.mark("13")
+    report["node"] = run_node(stack, inp, ns)
+    for name, v in report["node"]["launches"].items():
         launches[name] = launches.get(name, 0) + v
     close_signers()  # the last phase that signs in bulk
     stack.close()
     default_dispatch_queue().close()
 
     # -- phase 7: the same work over a mesh of four shards --------------------
+    phase_clock.mark("7")
     report["mesh"] = run_mesh(
         inp, verifier,
         commit=(pubs2, commit, exp2, p2["warm_commit_s_median"]),
@@ -4684,6 +5509,7 @@ def run(args) -> dict:
     )
 
     # -- phase 1: each kernel against its plain version, then timed ----------
+    phase_clock.mark("1")
 
     def lanes_to_dev(pubs, commits):
         s, h, r, _pre = tab.prepare_commit_lanes(pubs, commits)
@@ -4827,6 +5653,8 @@ def run(args) -> dict:
     log({"phase": "sha512_wide", **report["sha512_wide"]})
     report["profiler_lost_sessions"] = LOST_SESSIONS[0]
     log({"phase": "profiler", "lost_sessions": LOST_SESSIONS[0]})
+    report["phase_s"] = phase_clock.done()
+    log({"phase": "phase_s", **report["phase_s"]})
     return report
 
 
@@ -4843,6 +5671,7 @@ def main() -> int:
     ap.add_argument("--sync-only", action="store_true", help="phase 0 and the sync phase alone")
     ap.add_argument("--consensus-only", action="store_true", help="phase 0 and the consensus phase alone")
     ap.add_argument("--readpath-only", action="store_true", help="phase 0 and the read-path phase alone")
+    ap.add_argument("--node-only", action="store_true", help="phase 0 and the node phase alone")
     args = ap.parse_args()
 
     import torch
@@ -4865,6 +5694,8 @@ def main() -> int:
             report = run_consensus_only(args)
         elif args.readpath_only:
             report = run_readpath_only(args)
+        elif args.node_only:
+            report = run_node_only(args)
         else:
             report = run(args)
         report["metrics"] = dump_metrics()

@@ -1372,10 +1372,10 @@ class ConsensusState:
         self.commit_time = time_mod.time()
         self.step = RoundStepType.COMMIT
         self._observe_phase("commit")
-        self._new_step()
 
         block_id = self.votes.precommits(commit_round).two_thirds_majority()
         if block_id is None or block_id.is_zero():
+            self._new_step()
             raise ValidationError("enterCommit without +2/3 precommits")
         if self.locked_block is not None and self.locked_block.hash_to(block_id.hash):
             self.proposal_block = self.locked_block
@@ -1387,7 +1387,14 @@ class ConsensusState:
                 # we don't have the committed block: fetch via gossip
                 self.proposal_block = None
                 self.proposal_block_parts = PartSet.from_header(block_id.parts_header)
-                return
+        # Announce the step only now, as the reference's deferred
+        # `newStep` does: the reactor's CommitStepMessage carries
+        # `proposal_block_parts`' header, and peers past this height send
+        # catch-up parts only for the header it names. Announced before
+        # the swap above, a node committing an earlier round's block
+        # while holding a later round's proposal named that proposal's
+        # header, and peers never sent it the committed block.
+        self._new_step()
         self._try_finalize_commit(height)
 
     def _try_finalize_commit(self, height: int) -> None:

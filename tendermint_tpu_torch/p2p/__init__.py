@@ -8,8 +8,8 @@ stays on the host by design (SURVEY.md §5.8); the device plane lives in
 `parallel/` and `ops/`.
 
 The port's copy of `tendermint_tpu/p2p/__init__.py`, with the same
-exports. `pex`, `addrbook` and `upnp` are not ported yet: only the node
-and the command line reach them.
+exports: `pex`, `addrbook` and `upnp` are imported from their modules,
+which only the node and the command line reach.
 """
 
 from tendermint_tpu_torch.p2p.connection import ChannelDescriptor, MConnection

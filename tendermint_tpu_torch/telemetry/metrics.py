@@ -460,6 +460,39 @@ PROFILE_TICK_SECONDS = Histogram(
     buckets=LATENCY_BUCKETS,
 )
 
+# -- process resources (telemetry/process.py) ---------------------------------
+
+PROCESS_RSS = Gauge(
+    "tendermint_process_rss_bytes", "Resident set size of this process"
+)
+PROCESS_FDS = Gauge(
+    "tendermint_process_open_fds", "Open file descriptors in this process"
+)
+PROCESS_THREADS = Gauge(
+    "tendermint_process_threads", "Live Python threads in this process"
+)
+PROCESS_GC_PAUSE = Histogram(
+    "tendermint_process_gc_pause_seconds",
+    "Stop-the-world GC collection pauses (gc.callbacks timing; "
+    "installed by telemetry/process.py install_gc_telemetry)",
+    buckets=LATENCY_BUCKETS,
+)
+PROCESS_GC_COLLECTIONS = Counter(
+    "tendermint_process_gc_collections_total",
+    "GC collections by generation",
+    labelnames=("gen",),
+)
+
+for _gen in ("0", "1", "2"):
+    PROCESS_GC_COLLECTIONS.labels(gen=_gen).inc(0)
+
+# live views cost nothing between scrapes (read at scrape time only)
+from tendermint_tpu_torch.telemetry import process as _process  # noqa: E402
+
+PROCESS_RSS.set_function(_process.rss_bytes)
+PROCESS_FDS.set_function(_process.open_fds)
+PROCESS_THREADS.set_function(_process.thread_count)
+
 # -- state sync (statesync/) ---------------------------------------------------
 
 STATESYNC_CHUNKS = Counter(
@@ -754,3 +787,20 @@ for _kind in GOSSIP_REDUNDANT_KINDS:
     GOSSIP_REDUNDANT_BYTES.labels(kind=_kind).inc(0)
 for _result in ("delivered", "delayed", "dup", "dropped", "partitioned", "congested"):
     LINK_SENDS.labels(result=_result).inc(0)
+
+
+def bind_node_gauges(node) -> None:
+    """Point the live-view gauges at a composed `node.Node`. Called from
+    the node's start(); the callbacks read cheap in-memory state at
+    scrape time only."""
+
+    # GC pause timing rides along: a serving node always wants it, and
+    # the hook is idempotent + process-lifetime cheap
+    _process.install_gc_telemetry()
+
+    P2P_PEERS.set_function(lambda: node.switch.n_peers() if node.switch else 0)
+    P2P_SEND_RATE.set_function(lambda: node.switch.send_rate_total())
+    P2P_RECV_RATE.set_function(lambda: node.switch.recv_rate_total())
+    P2P_SEND_QUEUE.set_function(lambda: node.switch.send_queue_depth_total())
+    P2P_SEND_QUEUE_MAX.set_function(lambda: node.switch.send_queue_depth_max())
+    MEMPOOL_SIZE.set_function(lambda: node.mempool.size())

@@ -807,7 +807,7 @@ class StateSyncingNode:
 
 class ReadNode:
     """The node `rpc.core.make_routes` and `telemetry.health.build_health`
-    read, assembled from the port's parts (the port has no `Node` yet):
+    read, assembled from the port's parts without a whole `Node`:
     `genesis`, `block_store`, `current_state` (the state object given,
     read live), the app's connections (`app_conns`), an `EventSwitch`,
     and the `tx_indexer`, `lightclient_reactor` and `hasher` the caller

@@ -859,6 +859,41 @@ class TestPOLSafety:
         finally:
             f.stop()
 
+    def test_commit_step_names_the_committed_blocks_parts(self):
+        """Round 0 ends without a visible quorum, the node proposes a
+        block of its own in round 1, then the withheld round-0 precommit
+        completes +2/3 for the round-0 block. When the COMMIT step is
+        announced (the reactor then sends its CommitStepMessage), the
+        node's `proposal_block_parts` must be the committed block's,
+        not its own round-1 proposal's: a deliberate difference from
+        the JAX package, which announces the step first."""
+        f = Fixture(n_vals=4, real_ticker=True)
+        named = []
+
+        def on_step(data):
+            rs = f.cs.get_round_state()
+            if rs.step == RoundStepType.COMMIT:
+                named.append(rs.proposal_block_parts.header if rs.proposal_block_parts else None)
+
+        f.cs.event_switch.add_listener("probe", ev.EVENT_NEW_ROUND_STEP, on_step)
+        try:
+            f.cs.start()
+            b1_id = f.proposal_block_id()
+            b1_parts = f.cs.get_round_state().proposal_block_parts
+            f.inject_votes(VOTE_TYPE_PRECOMMIT, b1_id, [1, 2])
+            wait_round(f, 1)
+            b2_id = f.proposal_block_id()
+            assert b2_id.hash != b1_id.hash
+            inject_late_votes(f, VOTE_TYPE_PRECOMMIT, b1_id, [3], round_=0)
+            f.wait_step("Commit")
+            assert named == [b1_id.parts_header]
+            # the parts a peer sends for that header complete the commit
+            for i in range(b1_parts.total):
+                f.cs.add_proposal_block_part(1, 0, b1_parts.get_part(i), peer_id="peer1")
+            assert f.wait_height(1).hash() == b1_id.hash
+        finally:
+            f.stop()
+
 
 def _wal_record_offsets(path: str) -> list[int]:
     """Byte offsets of every record boundary (after each record)."""

@@ -223,6 +223,48 @@ class TestMultiNodeConsensus:
             if late is not None:
                 late.stop()
 
+    def test_node_that_moved_rounds_commits_the_earlier_rounds_block(self):
+        """A node that missed a height's votes moves on through the rounds
+        until it proposes a block of its own, then learns from catch-up
+        gossip that round 0 committed another block. Its COMMIT step must
+        name the committed block's parts, so that the peers, already past
+        the height, send them: named after its own proposal, the peers
+        never did and the node stayed at that height for good while the
+        others went on."""
+        nodes, _, _ = make_network(4, start=False)
+        slow = nodes[2].cs
+        add_vote = slow.add_vote
+        deaf = {"height": None, "since": None, "heard": False}
+
+        def deaf_add_vote(vote, peer_id=""):
+            # height 3's votes stay unheard until node 2 holds its own
+            # proposal of a later round (at most 20 s)
+            if deaf["height"] is None and slow.height >= 3:
+                deaf.update(height=slow.height, since=time.time())
+            if vote.height == deaf["height"] and not deaf["heard"]:
+                rs = slow.get_round_state()
+                own = rs.round >= 1 and rs.proposal is not None and rs.proposal.round == rs.round
+                if not own and time.time() - deaf["since"] < 20:
+                    return
+                deaf["heard"] = own or "timed out"
+            return add_vote(vote, peer_id)
+
+        slow.add_vote = deaf_add_vote
+        for n in nodes:
+            n.start()
+        for i in range(4):
+            for j in range(i + 1, 4):
+                connect_switches(nodes[i].switch, nodes[j].switch)
+        try:
+            wait_until(lambda: deaf["heard"], timeout=40, msg="node 2's own proposal of a later round")
+            assert deaf["heard"] is True, deaf
+            wait_until(lambda: nodes[2].height > deaf["height"] + 1, timeout=20,
+                       msg=f"node 2 past height {deaf['height']}")
+            assert min(n.height for n in nodes[:2]) > deaf["height"] + 1
+            for h in range(1, nodes[2].height):
+                assert nodes[2].store.load_block(h).hash() == nodes[0].store.load_block(h).hash()
+        finally:
+            stop_all(nodes)
 
 class TestByzantineProposer:
     def test_equivocating_proposer_network_recovers(self):

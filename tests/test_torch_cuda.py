@@ -974,3 +974,54 @@ def test_port_node_state_syncs_and_certifies_on_the_card(dev, monkeypatch):
         snap = svc.snapshot()
         assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
     stack.close()
+
+
+def test_port_node_process_commits_on_the_card(dev, tmp_path):
+    """One `python -m tendermint_tpu_torch node` process on the card (no
+    `--device`: the card is the default), a solo validator from `init`
+    with TENDERMINT_TPU_MIN_DEVICE_BATCH=0 so that each commit reaches the
+    card: it commits a tx sent through `broadcast_tx_commit`, its launch
+    ledger holds `tables` records that reached the card with no error,
+    and SIGTERM stops it with exit code 0."""
+    import json
+    import os
+    import pathlib
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    home = tmp_path / "home"
+    env = dict(os.environ, PYTHONPATH=str(repo), TENDERMINT_TPU_MIN_DEVICE_BATCH="0")
+    cli = [sys.executable, "-m", "tendermint_tpu_torch"]
+    subprocess.run([*cli, "init", "--home", str(home), "--chain-id", "card-node"], cwd=repo, env=env, check=True,
+                   capture_output=True, timeout=120)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        rpc_port = s.getsockname()[1]
+    proc = subprocess.Popen([*cli, "node", "--home", str(home), "--p2p-laddr", "tcp://127.0.0.1:0",
+                             "--rpc-laddr", f"tcp://127.0.0.1:{rpc_port}"],
+                            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        assert b" up: p2p " in proc.stdout.readline()
+        client = HTTPClient(f"127.0.0.1:{rpc_port}")
+        res = client.broadcast_tx_commit(b"card=node")
+        assert res["check_tx"]["code"] == 0 and res["deliver_tx"]["code"] == 0
+        deadline = time.time() + 60
+        while client.status()["sync_info"]["latest_block_height"] < res["height"] + 1:
+            assert time.time() < deadline
+            time.sleep(0.05)
+        assert bytes.fromhex(client.abci_query(data=b"card")["value"]) == b"node"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    records = [json.loads(line) for line in (home / "data" / "launches.jsonl").read_text().splitlines()]
+    tables = [r for r in records if r["kind"] == "tables" and r.get("backend", "host") != "host"]
+    assert tables and not [r for r in records if r.get("error")]

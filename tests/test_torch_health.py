@@ -10,9 +10,9 @@ section, an empty ledger) and the SLO's trace boost (`TestSloTraceBoost`);
 the profiler's thread classification, collapsed stacks, ranked-lock
 contention timing, the on-CPU split, the boost window and the env
 arming, and the unified queue-wait and `profile` views
-(`tests/test_profiler.py`'s unit classes; `TestProcessTelemetry` waits
-for `telemetry/process.py`, ROADMAP A8). `TestHealthTransitions` and
-`TestHealthRoute` wait for the port's node and nemesis (A8, A9).
+(`tests/test_profiler.py`'s unit classes; `TestProcessTelemetry` and
+`TestHealthRoute` run on the port's node in `test_torch_port_node.py`).
+`TestHealthTransitions` waits for the port's nemesis (ROADMAP A9).
 
 Across the packages: `build_health` of equal stub nodes over a matrix of
 node conditions (apart from its clocks), the thread vocabulary's

@@ -7,7 +7,10 @@ SecretConnection runs on the port's own X25519, HKDF and
 ChaCha20-Poly1305. `grpc` is imported only inside the functions of
 `abci/grpc_transport.py` and `rpc/grpc_api.py`, never at module level.
 The read path's modules (light client, state sync, RPC, the node
-provider, health, views, profiler) exist under the JAX names."""
+provider, health, views, profiler) and the node's (config, node, cmd,
+pex, addrbook, upnp, process telemetry, replay console) exist under the
+JAX names, each the JAX module apart from docstrings and the node's
+declared differences (`DECLARED`)."""
 
 from __future__ import annotations
 
@@ -123,10 +126,11 @@ def test_read_path_modules_stand_where_the_jax_package_has_them(rel):
     assert not bad, bad
 
 
-def _code(path: pathlib.Path) -> str:
-    """The module's AST without its docstrings, the port's package name
-    read as the JAX package's."""
-    tree = ast.parse(path.read_text())
+def _code(path: pathlib.Path, text: str | None = None) -> str:
+    """The module's AST (of `text` in place of the file's, when given)
+    without its docstrings, the port's package name read as the JAX
+    package's."""
+    tree = ast.parse(path.read_text() if text is None else text)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and body
@@ -139,6 +143,108 @@ def _code(path: pathlib.Path) -> str:
 @pytest.mark.parametrize("rel", READ_PATH_MODULES)
 def test_read_path_modules_are_the_jax_modules_apart_from_docstrings(rel):
     assert _code(PORT / rel) == _code(REPO / "tendermint_tpu" / rel)
+
+
+NODE_MODULES = (
+    "version.py", "__main__.py", "telemetry/process.py", "config/__init__.py", "p2p/addrbook.py",
+    "p2p/pex.py", "p2p/upnp.py", "node/__init__.py", "node/node.py", "consensus/replay_console.py", "cmd.py",
+)
+
+# The node's deliberate differences from the JAX modules, as (JAX source,
+# port source) pairs: with each applied to the JAX module's text, its AST
+# must equal the port module's apart from docstrings.
+DECLARED = {
+    # `Node(..., device=None)`: verifier=None and hasher=None resolve to
+    # the card's stack (or `device`'s), never a host backend
+    "node/node.py": (
+        ("        hasher=None,\n    ) -> None:", "        hasher=None,\n        device=None,\n    ) -> None:"),
+        ("verifier = default_verifier()", "verifier = default_verifier(device)"),
+        ("hasher = auto_hasher()", "hasher = auto_hasher(device)"),
+    ),
+    # the port's SecretConnection needs no `cryptography`
+    "config/__init__.py": (
+        ("""        cfg.statesync.giveup_time_s = 20.0
+        try:
+            import cryptography  # noqa: F401
+        except ImportError:
+            # X25519/AEAD transport crypto deliberately has NO pure-Python
+            # fallback (unlike signing, `crypto/ed25519_ref.py`); in test
+            # environments without the library, run links unencrypted so
+            # the p2p/node matrices still exercise everything else.
+            # Production configs keep secret_connections=True and fail
+            # loudly if the library is missing.
+            cfg.p2p.secret_connections = False
+""", "        cfg.statesync.giveup_time_s = 20.0\n"),
+    ),
+    # `--device` on node, replay and replay_console; no persistent XLA
+    # cache (`ops/_build.py`'s kernel library is the counterpart)
+    "cmd.py": (
+        ("""    from tendermint_tpu.utils.jax_cache import enable_persistent_cache
+
+    # kernels (table builds, verify, merkle) compile once per MACHINE:
+    # restarts deserialize from the on-disk executable cache
+    enable_persistent_cache()
+""", ""),
+        ("node = Node(cfg)", "node = Node(cfg, device=args.device)"),
+        ("make_replay_cs_factory(cfg)", "make_replay_cs_factory(cfg, device=args.device)"),
+        ("""        "--fast-sync", type=lambda s: s.lower() != "false", default=None
+    )
+""", """        "--fast-sync", type=lambda s: s.lower() != "false", default=None
+    )
+    p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+"""),
+        ("""    p.add_argument("--wal", default="", help="WAL path (default: the home's)")
+    p.set_defaults(fn=_cmd_replay, console=False)""", """    p.add_argument("--wal", default="", help="WAL path (default: the home's)")
+    p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    p.set_defaults(fn=_cmd_replay, console=False)"""),
+        ("""    p.add_argument("--wal", default="", help="WAL path (default: the home's)")
+    p.set_defaults(fn=_cmd_replay, console=True)""", """    p.add_argument("--wal", default="", help="WAL path (default: the home's)")
+    p.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    p.set_defaults(fn=_cmd_replay, console=True)"""),
+    ),
+    # the replay's ConsensusState and handshake verify on
+    # `default_verifier(device)`: a port ConsensusState given no verifier
+    # takes the card's stack
+    "consensus/replay_console.py": (
+        ("def make_replay_cs_factory(config, app_factory=None, db_provider=None):",
+         "def make_replay_cs_factory(config, app_factory=None, db_provider=None, device=None):"),
+        ("""    \"\"\"
+
+    def make_cs() -> ConsensusState:""", """    \"\"\"
+    from tendermint_tpu.services.verifier import default_verifier
+
+    verifier = default_verifier(device)
+
+    def make_cs() -> ConsensusState:"""),
+        ("Handshaker(st, store).handshake(app_conns)", "Handshaker(st, store, verifier=verifier).handshake(app_conns)"),
+        ("ticker=MockTicker(fire_steps=()),  # records drive everything\n",
+         "ticker=MockTicker(fire_steps=()),  # records drive everything\n            verifier=verifier,\n"),
+    ),
+}
+
+
+@pytest.mark.parametrize("rel", NODE_MODULES)
+def test_node_modules_stand_where_the_jax_package_has_them(rel):
+    port, jax = PORT / rel, REPO / "tendermint_tpu" / rel
+    assert port.is_file() and jax.is_file()
+    bad = [(line, n) for line, n, _ in _imports(port) if _forbidden(n) or _is(n, "cryptography") or _is(n, "grpc")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("rel", NODE_MODULES)
+def test_node_modules_are_the_jax_modules_apart_from_the_declared_differences(rel):
+    text = (REPO / "tendermint_tpu" / rel).read_text()
+    for jax_src, port_src in DECLARED.get(rel, ()):
+        assert text.count(jax_src) == 1, (rel, jax_src)
+        text = text.replace(jax_src, port_src)
+    assert _code(PORT / rel) == _code(REPO / "tendermint_tpu" / rel, text)
+
+
+def test_a_declared_difference_is_needed():
+    """Without its declared differences, each such module differs from
+    its JAX counterpart: every entry of DECLARED is still needed."""
+    for rel in DECLARED:
+        assert _code(PORT / rel) != _code(REPO / "tendermint_tpu" / rel), rel
 
 
 def test_node_provider_stays_out_of_the_certifiers_exports():
@@ -163,7 +269,9 @@ def test_importing_every_port_module_loads_no_jax():
     code = """
 import importlib, pkgutil, sys
 import tendermint_tpu_torch as pkg
-names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+# `__main__` runs the command line when imported: its imports are held
+# by the import-line checks above
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".") if m.name != pkg.__name__ + ".__main__"]
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401

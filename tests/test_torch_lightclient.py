@@ -13,7 +13,7 @@ extraction, and the 0x68 reactor (request and floor fallback, concurrent
 waits, pushes certified and forwarded, a forged push scored and turned
 into evidence). The port's certifiers are given the port's
 `HostBatchVerifier` (`verifier=None` is the card's stack).
-`TestReplicaAcceptance` waits for the port's node (ROADMAP A8).
+`TestReplicaAcceptance` waits for the port's nemesis (ROADMAP A9).
 
 Across the packages, on one source: both `BisectingCertifier`s end at
 the same trusted heights with the same rounds and `last_walk_verifies`,

@@ -5,11 +5,10 @@ The JAX package's own scenarios run again on `tendermint_tpu_torch.p2p`,
 the multiplexed connection, keepalive, the switch), `test_peer_score.py`
 (scores, bans, a malformed or oversize frame dropping only its sender),
 `test_gossiplog.py` (the rollup's bounds, the golden bytes, a sampled-out
-switch) and `test_log_flowrate.py`. The cases that need modules the port
-does not carry yet (the node's persistent-peer matching, the light-client,
-state-sync and pex reactors' channel constants) wait for those slices;
-the gossip tables are held to the JAX package's and to the port's
-blockchain, consensus, mempool and evidence reactors.
+switch) and `test_log_flowrate.py`. The node's persistent-peer matching
+runs in `test_torch_port_node.py`, the PEX reactor's gossip tags in
+`test_torch_pex.py`; the gossip tables are held to the JAX package's
+and to the port's blockchain, consensus, mempool and evidence reactors.
 
 Across the packages: the wire forms are byte-equal (`NodeInfo`, frames
 with and without a trace block), and a JAX `Switch` and a port `Switch`

@@ -3,7 +3,7 @@
 
 One seeded JAX chain (4 validators, `KVStoreApp`, a `KVTxIndexer`) is
 held by a JAX stub node and, by its wire and JSON forms, by a port
-`testing.ReadNode` (the port has no `Node` yet; a stub carries the
+`testing.ReadNode` (a node of the port's parts; a stub carries the
 fields `make_routes` reads, its config the two it reads, `rpc.unsafe`
 and `base.moniker`, as the JAX `tests/test_health.py` stub does). Every
 route's JSON from both packages' `make_routes` must be equal, errors
@@ -17,8 +17,8 @@ WebSocket handshake, frames and event JSON (the JAX
 case among them) agree, and a `WSClient` of one package follows events
 fired on a server of the other; the gRPC broadcast API (`grpc` imported
 inside its functions) answers `Ping` and `BroadcastTx` across the
-packages. `test_rpc_client.py` itself waits for the port's `Node` (ROADMAP
-A8). Tolerance: exact.
+packages. `test_rpc_client.py` itself runs on the port's `Node` in
+`test_torch_port_rpc_client.py`. Tolerance: exact.
 """
 
 from __future__ import annotations

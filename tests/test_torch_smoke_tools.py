@@ -1,8 +1,11 @@
 """The bookkeeping of `chip_smoke.py` and `tendermint_tpu_torch.abba`
 that runs without a card: the hash bounds' instruction counts, the
-refusal to compare kernel times measured by different means, and the
+refusal to compare kernel times measured by different means, the
 profiler sessions that are run again when they recorded no device
-activity (with a stand-in for torch.profiler)."""
+activity (with a stand-in for torch.profiler), and the node phase's
+accounts: a node's launch-ledger records read as kernel launches, a
+node process's counts hook (its wrappers' counts and its timers at
+exit), a height ledger's split and the run's phase clock."""
 
 from __future__ import annotations
 
@@ -114,3 +117,112 @@ def test_kernel_ms_still_refuses_a_session_that_missed_launches(monkeypatch):
 def test_profiler_drops_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert profiler_drops.main(["1"]) == 2
+
+
+def _rec(kind, rows, backend="tables", **extra):
+    return {"kind": kind, "rows": rows, "backend": backend, **extra}
+
+
+def test_ledger_kernels_reads_each_record_as_its_kernel():
+    from tendermint_tpu_torch.ops.ed25519_tables import FUSED_MIN_STACK
+
+    records = [
+        _rec("tables", 1000),  # one commit of 1,000: the entries chain
+        _rec("tables", FUSED_MIN_STACK * 1000),  # a window of FUSED_MIN_STACK commits: fused
+        _rec("tables", (FUSED_MIN_STACK - 1) * 1000),
+        _rec("verify", 8, backend="device"),
+        _rec("verify", 8, backend="device", mesh_width=2),  # a launch a shard
+        _rec("verify", 3, backend="host"),  # the host answered: no launch
+        _rec("tables", 1000, error="InjectedDeviceFault"),
+    ]
+    got = chip_smoke.ledger_kernels(records, 1000)
+    assert got == dict(dict.fromkeys(chip_smoke.WRAPPERS, 0), madd_chain_entries=2, madd_chain_fused=1, ladder=3,
+                       finish_encode_compare=6)
+    with pytest.raises(AssertionError, match="hash record"):
+        chip_smoke.ledger_kernels([_rec("hash", 9000, backend="device")], 1000)
+
+
+def test_node_account_holds_counts_less_the_warm_up_to_the_ledger():
+    zero = dict.fromkeys(chip_smoke.WRAPPERS, 0)
+    warm = dict(zero, madd_chain_entries=1, madd_chain_fused=1, ladder=1, finish_encode_compare=3)
+    got = dict(zero, madd_chain_entries=2, madd_chain_fused=1, ladder=1, finish_encode_compare=4)
+    assert chip_smoke.node_account("n", got, warm, [_rec("tables", 4)], 4) == dict(
+        zero, madd_chain_entries=1, finish_encode_compare=1)
+    with pytest.raises(AssertionError, match="account for"):
+        chip_smoke.node_account("n", got, warm, [], 4)
+    with pytest.raises(AssertionError, match="with an error"):
+        chip_smoke.node_account("n", warm, warm, [_rec("tables", 4, error="X")], 4)
+
+
+def test_counts_hook_writes_the_wrappers_counts_and_the_timers(tmp_path):
+    """A process with the hook first on its path: its wrappers' counts
+    and the timed methods' seconds land in the file its environment
+    names, and the interpreter's own sitecustomize still runs."""
+    import json
+    import os
+    import subprocess
+
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    chip_smoke.write_counts_hook(hook)
+    shadowed = tmp_path / "shadowed"
+    shadowed.mkdir()
+    (shadowed / "sitecustomize.py").write_text("import builtins\nbuiltins.SHADOWED_RAN = True\n")
+    out = tmp_path / "counts.json"
+    code = (
+        "import builtins\n"
+        "assert builtins.SHADOWED_RAN\n"
+        "from tendermint_tpu_torch.ops import ed25519_tables as t\n"
+        "from tendermint_tpu_torch.consensus.replay import Handshaker\n"
+        "from tendermint_tpu_torch.node.node import Node\n"
+        "t.sum_entries.launches = 3\n"
+        "assert Handshaker.handshake.__name__ == 'timed' and Node.start.__name__ == 'timed'\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(hook), str(shadowed), str(REPO)]))
+    env[chip_smoke.NODE_COUNTS_ENV] = str(out)
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    doc = json.loads(out.read_text())
+    assert doc["counts"] == dict(dict.fromkeys(chip_smoke.WRAPPERS, 0), madd_chain_entries=3)
+    assert doc["seconds"] == {}  # nothing timed ran
+    # a timed call records its seconds and its wall-clock end
+    code = ("import time\nfrom tendermint_tpu_torch.consensus.replay import Handshaker\n"
+            "t0 = time.time()\n"
+            "try:\n    Handshaker.handshake(None, None)\nexcept AttributeError:\n    pass\n")
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    ((secs, end),) = json.loads(out.read_text())["seconds"]["handshake_s"]
+    assert 0 <= secs < 5 and abs(end - __import__("time").time()) < 60
+    # the end of a MARKS call (the warm-up) leaves its mark beside the file
+    mark = pathlib.Path(str(out) + ".warm_first_use_s")
+    assert not mark.exists()
+    code = ("from tendermint_tpu_torch.services.verifier import TableBatchVerifier\n"
+            "try:\n    TableBatchVerifier._first_use(None)\nexcept AttributeError:\n    pass\n")
+    run = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert mark.exists() and "warm_first_use_s" in json.loads(out.read_text())["seconds"]
+
+
+def test_height_split_reads_the_height_ledger(tmp_path):
+    import json
+
+    (tmp_path / "data").mkdir()
+    recs = [{"height": h, "round": int(h == 3), "height_s": float(h), "critical_path": "proposal_wait",
+             "phases": {"new_height": {"s": 1.0}, "propose": {"s": 0.1 * h}}} for h in range(1, 6)]
+    (tmp_path / "data" / "heights.jsonl").write_text("".join(json.dumps(r) + "\n" for r in recs))
+    got = chip_smoke.height_split(tmp_path, 2, 4)
+    assert got["heights"] == 3 and got["height_s_median"] == 3.0
+    assert got["phase_s_median"] == {"new_height": 1.0, "propose": pytest.approx(0.3)}
+    assert got["slowest"] == (4, 4.0, "proposal_wait") and got["rounds_past_0"] == 1
+    assert got["critical_path"] == {"proposal_wait": 3}
+    assert chip_smoke.height_split(tmp_path, 9, 9) == {"heights": 0}
+
+
+def test_phase_clock_charges_each_phase_until_the_next_mark(monkeypatch):
+    ticks = iter([0.0, 1.0, 3.0, 6.0, 10.0])
+    monkeypatch.setattr(chip_smoke.time, "perf_counter", lambda: next(ticks))
+    clock = chip_smoke.PhaseClock()
+    clock.mark("0")
+    clock.mark("2")
+    clock.mark("0")
+    assert clock.done() == {"0": 2.0 + 4.0, "2": 3.0}

@@ -10,7 +10,7 @@ timeouts and requeues, the block store's base, prune and bootstrap, and
 the serving lifecycle (the cadence resumed after a restart, retained
 blocks). The JAX cases that run a `Nemesis` net build their store with
 the port's `ChainSim` instead; `TestStateSyncEndToEnd` waits for the
-port's node and nemesis (ROADMAP A8, A9).
+port's nemesis (ROADMAP A9).
 
 Across the packages, seeded: the same state, app bytes and block tail
 give byte-equal manifests, chunks and roots through both packages'
