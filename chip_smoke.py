@@ -215,8 +215,28 @@ as a canonical vote's sign bytes):
    equal what its ledger's records account for kernel by kernel; a
    record with an error, a host fallback or primary failure in a node's
    breakers, a process that exits early or a hash that differs fails.
-   Then the stack is closed. `--node-only` runs phase 0 and this phase
-   alone;
+   `--node-only` runs phase 0 and this phase alone;
+14. testing, run after phase 13 on the same stack: the port's own
+   nemesis book (`tendermint_tpu_torch.testing`) at the minimum device
+   batch 0, so every vote drain launches `ladder` and every commit
+   `madd_chain_entries`. A `Nemesis` of 4 `NemesisNode`s with
+   `device="cuda"` and no verifier factory, so each node verifies on the
+   signature cache and coalescer of its own that the book gives it over
+   `default_verifier()`'s resilient table backend, with the span log on:
+   healthy heights, a minority partition and heal (the cut node catches
+   up), a crash with a corrupted WAL tail and a restart (WAL replay), and
+   an `Equivocator` whose `DuplicateVoteEvidence` every honest node
+   commits within 5 heights; then the library's `slow_wan_validator`
+   through the port's `ScenarioRunner(device="cuda")` (4 nodes on a WAN
+   topology with one far validator, adaptive timeouts, 30 heights), graded
+   by its own expectations (the timeouts learn the slow path, no round
+   skip after warm-up). Each net must store the same block,
+   block hash and app hash at every height on every node, and the
+   process's launch ledger must account for the net's launches kernel by
+   kernel (the nodes share the process and its ledger); a record with an
+   error, a host fallback or primary failure, or a module of jax in the
+   process fails. Then the stack is closed. `--testing-only` runs phase 0
+   and this phase alone;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -4533,27 +4553,45 @@ def run_node_net(out, base: int, hook_dir, inp, run: str, min_batch, warm: dict)
         # restart (the JAX package's and the reference's behaviour)
         from tendermint_tpu_torch.types.tx import tx_hash
 
-        rep["recommitted"] = []
-        for i, tx in enumerate(txs):
-            key, _, value = tx.partition(b"=")
-            heights = [h for h, hx in by_height.items() for t in hx if t == tx.hex()]
-            later = [h for h in heights[1:] if run == "a" and h > rep["killed_at"]]
-            if not heights or heights[0] != results[i]["height"] or heights[1:] != later:
-                raise AssertionError(f"node_net {run}: tx {i} committed at heights {heights}, "
-                                     f"broadcast_tx_commit said {results[i]['height']}")
-            if later:
-                rep["recommitted"].append((i, heights))
-            answers = set()
-            for n, c in enumerate(clients):
-                q = c.abci_query(data=key)
-                if bytes.fromhex(q["value"]) != value:
-                    raise AssertionError(f"node_net {run}: node {n} answers {q} for tx {i}'s key")
-                got = c.tx(tx_hash(tx))
-                if bytes.fromhex(got["tx"]) != tx or got["height"] != heights[-1]:
-                    raise AssertionError(f"node_net {run}: node {n}'s tx {i} is {got}, committed at {heights}")
-                answers.add(json.dumps(got, sort_keys=True))
-            if len(answers) != 1:
-                raise AssertionError(f"node_net {run}: the nodes' `tx` answers for tx {i} differ: {answers}")
+        def check_txs(by_height, top):
+            """None once every tx checks out on every node; in run a, the
+            height of a commit again past `top` that a node's `tx` route
+            already names (the nodes keep committing while this runs)."""
+            rep["recommitted"] = []
+            for i, tx in enumerate(txs):
+                key, _, value = tx.partition(b"=")
+                heights = [h for h, hx in by_height.items() for t in hx if t == tx.hex()]
+                later = [h for h in heights[1:] if run == "a" and h > rep["killed_at"]]
+                if not heights or heights[0] != results[i]["height"] or heights[1:] != later:
+                    raise AssertionError(f"node_net {run}: tx {i} committed at heights {heights}, "
+                                         f"broadcast_tx_commit said {results[i]['height']}")
+                if later:
+                    rep["recommitted"].append((i, heights))
+                answers = set()
+                for n, c in enumerate(clients):
+                    q = c.abci_query(data=key)
+                    if bytes.fromhex(q["value"]) != value:
+                        raise AssertionError(f"node_net {run}: node {n} answers {q} for tx {i}'s key")
+                    got = c.tx(tx_hash(tx))
+                    if run == "a" and got["height"] > top and got["height"] > rep["killed_at"]:
+                        return got["height"]
+                    if bytes.fromhex(got["tx"]) != tx or got["height"] != heights[-1]:
+                        raise AssertionError(f"node_net {run}: node {n}'s tx {i} is {got}, committed at {heights}")
+                    answers.add(json.dumps(got, sort_keys=True))
+                if len(answers) != 1:
+                    raise AssertionError(f"node_net {run}: the nodes' `tx` answers for tx {i} differ: {answers}")
+            return None
+
+        past = check_txs(by_height, top)
+        if past is not None:  # check again over every height up to that commit
+            wait_nodes(nodes, lambda: min(node_heights(clients)) >= past, f"height {past} on every node",
+                       NODE_NET_TIMEOUT_S)
+            top = min(node_heights(clients))
+            by_height = same_chain(f"net {run}", clients, top)
+            past = check_txs(by_height, top)
+            if past is not None:
+                raise AssertionError(f"node_net {run}: a tx was committed again at {past}, past height {top} "
+                                     f"a second time")
         rep["app_hashes"] = same_app_hash(f"net {run}", clients)
         rep["checked_heights"] = top
         rep["health"] = [node_device_health(nd.name, c) for nd, c in zip(nodes, clients)]
@@ -4735,6 +4773,131 @@ def run_node(stack, inp, ns: int) -> dict:
     steps = [r["launches_total"] for r in rep["net"]] + list(rep["sync"]["launches"].values())
     rep["launches"] = {k: sum(c[k] for c in steps) for k in WRAPPERS}
     log({"phase": "node", "launches": rep["launches"]})
+    return rep
+
+
+BOOK_NODES = 4
+BOOK_MIN_BATCH = 0  # the table backend's minimum device batch during the phase
+BOOK_EQUIVOCATOR = 3  # the validator that double-signs
+BOOK_EVIDENCE_WITHIN = 5  # heights from an equivocation to its evidence's commit
+BOOK_TIMEOUT_S = 90.0  # a step's wait for its heights
+BOOK_SCENARIO = "slow_wan_validator"
+
+
+def net_agrees(what: str, nodes) -> int:
+    """Every node stores the same block, block hash and app hash at each
+    height all of them have; returns that height."""
+    top = min(n.store.height for n in nodes)
+    for h in range(1, top + 1):
+        blocks = [n.store.load_block(h) for n in nodes]
+        if len({b.encode() for b in blocks}) != 1 or len({b.hash() for b in blocks}) != 1:
+            raise AssertionError(f"testing {what}: the nodes' blocks differ at height {h}")
+        if len({b.header.app_hash for b in blocks}) != 1:
+            raise AssertionError(f"testing {what}: the nodes' app hashes differ at height {h}")
+    return top
+
+
+def run_testing(stack, sync) -> dict:
+    """Phase 14: the port's own nemesis book and one library scenario on
+    the card (see the module's docstring). Launches: the book's and the
+    scenario's, each held against the launch ledger once its nodes stop."""
+    import tempfile
+
+    from tendermint_tpu_torch.testing import Equivocator, Nemesis, wait_evidence_committed
+    from tendermint_tpu_torch.testing.byzantine import committed_evidence
+    from tendermint_tpu_torch.testing.scenario import SCENARIO_LIBRARY, ScenarioRunner
+
+    backend = stack.inner.primary
+    dev = backend.device
+    min_batch = backend._min_batch
+    health = StackHealth(stack.inner)
+    rep: dict = {"nodes": BOOK_NODES, "steps": {}}
+    t_phase = time.perf_counter()
+    backend._min_batch = BOOK_MIN_BATCH
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_book_") as tmp:
+            led = StepLedger("testing", "book")
+            with Nemesis(BOOK_NODES, home=os.path.join(tmp, "book"), device=dev) as net:
+                if any(n.verifier.inner is not stack.inner for n in net.nodes):
+                    raise AssertionError("testing book: a node is not on default_verifier()'s backend")
+
+                def step(name, fn):
+                    t0, h0 = time.perf_counter(), max(net.heights())
+                    out = fn() or {}
+                    rep["steps"][name] = {"s": time.perf_counter() - t0, "from_height": h0,
+                                          "to_height": max(net.heights()), **out}
+                    log({"phase": "testing_step", "step": name, **rep["steps"][name]})
+
+                step("healthy", lambda: net.wait_height(2, timeout=BOOK_TIMEOUT_S))
+
+                def partition():
+                    net.partition({0, 1, 2}, {3})
+                    net.wait_progress(delta=2, nodes=[0, 1, 2], timeout=BOOK_TIMEOUT_S)
+                    cut = net.nodes[3].store.height
+                    net.heal()
+                    net.wait_height(max(net.heights()), nodes=[3], timeout=BOOK_TIMEOUT_S)
+                    return {"cut_node_height": cut}
+
+                step("partition_heal", partition)
+
+                def crash():
+                    net.crash(0)
+                    net.corrupt_wal_tail(0, nbytes=32)
+                    net.restart(0)
+                    net.wait_height(max(net.heights()) + 1, timeout=BOOK_TIMEOUT_S)
+
+                step("crash_wal_replay", crash)
+
+                def equivocate():
+                    eq = Equivocator(net, BOOK_EQUIVOCATOR).start()
+                    honest = [i for i in range(BOOK_NODES) if i != BOOK_EQUIVOCATOR]
+                    try:
+                        found = wait_evidence_committed(net, eq.address, nodes=honest,
+                                                        within_heights=BOOK_EVIDENCE_WITHIN, timeout=BOOK_TIMEOUT_S)
+                    finally:
+                        eq.stop()
+                    for i, h in found.items():
+                        if not any(e.address == eq.address for at, e in committed_evidence(net, i) if at == h):
+                            raise AssertionError(f"testing book: node {i} holds no evidence at height {h}")
+                    net.wait_progress(delta=1, timeout=BOOK_TIMEOUT_S)
+                    return {"equivocations": eq.equivocations, "evidence_heights": sorted(set(found.values()))}
+
+                step("equivocator", equivocate)
+            rep["book_top"] = net_agrees("book", net.nodes)
+            sync()
+            rep["book_launches"] = led.settle()
+            led.close()
+            led = StepLedger("testing", "scenario")
+            runner = ScenarioRunner(home=os.path.join(tmp, "scenario"), device=dev)
+            nets: list = []  # the net the runner builds, kept to check its stores after
+            build = runner._build_net
+            runner._build_net = lambda spec: nets.append(build(spec)) or nets[-1]
+            t0 = time.perf_counter()
+            report = runner.run(SCENARIO_LIBRARY[BOOK_SCENARIO])
+            if not report["ok"]:
+                raise AssertionError(f"testing {BOOK_SCENARIO}: {report['failures']}")
+            if any(n.verifier.inner is not stack.inner for n in nets[0].nodes):
+                raise AssertionError(f"testing {BOOK_SCENARIO}: a node is not on default_verifier()'s backend")
+            sync()
+            rep["scenario"] = {
+                "name": BOOK_SCENARIO, "s": time.perf_counter() - t0, "top": net_agrees(BOOK_SCENARIO, nets[0].nodes),
+                "launches": led.settle(), **{k: report[k] for k in ("heights", "finality", "round_skips",
+                                                                     "round_skips_post_warm", "propose_timeout_s",
+                                                                     "max_one_way_delay_s") if k in report},
+            }
+            led.close()
+            log({"phase": "testing_scenario", **rep["scenario"]})
+    finally:
+        backend._min_batch = min_batch
+    health.check("testing")
+    for name, c in (("book", rep["book_launches"]), (BOOK_SCENARIO, rep["scenario"]["launches"])):
+        _launched(c, ("ladder", "madd_chain_entries", "finish_encode_compare"), name, phase="testing")
+    jax = sorted(m for m in sys.modules if m in ("jax", "tendermint_tpu") or m.startswith(("jax.", "tendermint_tpu.")))
+    if jax:
+        raise AssertionError(f"testing: the process imported {jax[:5]}")
+    rep["launches"] = {k: rep["book_launches"][k] + rep["scenario"]["launches"][k] for k in WRAPPERS}
+    rep["s"] = time.perf_counter() - t_phase
+    log({"phase": "testing", "s": rep["s"], "book_top": rep["book_top"], "launches": rep["launches"]})
     return rep
 
 
@@ -5307,6 +5470,24 @@ def run_node_only(args) -> dict:
     return report
 
 
+def run_testing_only(args) -> dict:
+    """`--testing-only`: phase 0, then phase 14 alone on `default_verifier()`."""
+    import torch
+
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+    from tendermint_tpu_torch.services.verifier import default_verifier
+
+    report: dict = {"args": vars(args), "env": environment()}
+    stack = default_verifier()
+    check_layers(stack)
+    try:
+        report["testing"] = run_testing(stack, torch.cuda.synchronize)
+    finally:
+        stack.close()
+        default_dispatch_queue().close()
+    return report
+
+
 def run(args) -> dict:
     import torch
 
@@ -5494,6 +5675,12 @@ def run(args) -> dict:
     for name, v in report["node"]["launches"].items():
         launches[name] = launches.get(name, 0) + v
     close_signers()  # the last phase that signs in bulk
+
+    # -- phase 14: the port's own nemesis book and a library scenario -------
+    phase_clock.mark("14")
+    report["testing"] = run_testing(stack, sync)
+    for name, v in report["testing"]["launches"].items():
+        launches[name] = launches.get(name, 0) + v
     stack.close()
     default_dispatch_queue().close()
 
@@ -5672,6 +5859,7 @@ def main() -> int:
     ap.add_argument("--consensus-only", action="store_true", help="phase 0 and the consensus phase alone")
     ap.add_argument("--readpath-only", action="store_true", help="phase 0 and the read-path phase alone")
     ap.add_argument("--node-only", action="store_true", help="phase 0 and the node phase alone")
+    ap.add_argument("--testing-only", action="store_true", help="phase 0 and the testing phase alone")
     args = ap.parse_args()
 
     import torch
@@ -5696,6 +5884,8 @@ def main() -> int:
             report = run_readpath_only(args)
         elif args.node_only:
             report = run_node_only(args)
+        elif args.testing_only:
+            report = run_testing_only(args)
         else:
             report = run(args)
         report["metrics"] = dump_metrics()

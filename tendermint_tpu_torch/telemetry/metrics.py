@@ -419,6 +419,7 @@ SPAN_CATALOG = frozenset(
         "mempool.admission",
         "mempool.window",
         "p2p.hop",
+        "scenario.run",
         "tx.e2e",
         "vote.e2e",
     }
@@ -731,6 +732,19 @@ LINK_INFLIGHT = Gauge(
     "thread-count regression signal: one thread serves all of these)",
 )
 
+# -- declarative scenarios (testing/scenario.py) --------------------------------
+
+SCENARIO_RUNS = Counter(
+    "tendermint_scenario_runs_total",
+    "Declarative scenarios executed by ScenarioRunner, by verdict",
+    labelnames=("result",),
+)
+SCENARIO_SECONDS = Histogram(
+    "tendermint_scenario_seconds",
+    "Wall time per executed scenario (build + run + report)",
+    buckets=LATENCY_BUCKETS,
+)
+
 # Pre-seed the known label values so reads see zero-valued series before
 # any instance or event.
 for _kind in ("verify", "hash", "tables"):
@@ -787,6 +801,8 @@ for _kind in GOSSIP_REDUNDANT_KINDS:
     GOSSIP_REDUNDANT_BYTES.labels(kind=_kind).inc(0)
 for _result in ("delivered", "delayed", "dup", "dropped", "partitioned", "congested"):
     LINK_SENDS.labels(result=_result).inc(0)
+for _result in ("pass", "fail"):
+    SCENARIO_RUNS.labels(result=_result).inc(0)
 
 
 def bind_node_gauges(node) -> None:

@@ -1,13 +1,34 @@
-"""Hand-made inputs with known answers, shared by the port's tests and
-`chip_smoke.py`; nothing on the verify path imports this module."""
+"""Hand-made inputs with known answers and the chain, net and node
+fixtures, shared by the port's tests and `chip_smoke.py`; nothing on
+the verify path imports this module. `tendermint_tpu_torch.testing`
+re-exports every name of `__all__`. The bounded waits at the end
+(`time_limit`, `first_line`, `join_all`) keep a port test that starts a
+net, a node, a thread or a child process from waiting for good."""
 
 from __future__ import annotations
+
+import contextlib
+import faulthandler
+import signal
+import sys
+import threading
+import time
 
 import numpy as np
 import torch
 
 from tendermint_tpu_torch.ops.ed25519_kernel import P, SQRT_M1, _int_to_limbs, fe_canon, fe_mul, fe_to_bytes
 from tendermint_tpu_torch.ops.ed25519_tables import _B_EXT, host_affine, host_scalar_mul
+
+__all__ = [
+    "finish_edge_lanes", "MIXED_LANES", "MIXED_ZERO_LANE", "finish_mixed_lanes", "lockrank_report",
+    "LEDGER_KERNELS", "ledger_launches", "device_flat_rows", "kernel_launches", "TEST_CHAIN_ID",
+    "det_priv_keys", "make_validators", "make_block_id", "signed_vote", "byzantine_signed_vote",
+    "make_commit", "make_genesis", "ChainSim", "SignedChainSim", "chain_store", "serving_switch",
+    "SyncingNode", "preloaded_reactor", "forge_newest_precommit", "StormValidator", "NetValidator",
+    "start_net", "snapshot_server", "StateSyncingNode", "ReadNode", "time_limit",
+    "time_limit_fixture", "own_default_stacks", "first_line", "join_all",
+]
 
 
 def finish_edge_lanes():
@@ -673,46 +694,6 @@ def start_net(nodes) -> None:
 # -- read-path fixtures: snapshot serving, a state-syncing node, the RPC node --
 
 
-def forge_fullcommit(honest_fc, compromised_priv, chain_id: str):
-    """A forged FullCommit at an already-committed height (the JAX
-    package's `testing/byzantine.py` `forge_fullcommit`): a forged header
-    (wrong app_hash) carrying ONE genuine precommit, the compromised
-    validator double-signing the forged block, and no other signature.
-    Certification must reject it (one validator is never its own +2/3
-    quorum), and the genuine double sign is the slashable proof
-    `lightclient.extract_double_sign_evidence` mines out of the
-    rejection."""
-    from dataclasses import replace as _replace
-
-    from tendermint_tpu_torch.certifiers.certifier import FullCommit
-    from tendermint_tpu_torch.types import VOTE_TYPE_PRECOMMIT, BlockID, Vote
-    from tendermint_tpu_torch.types.block import Commit
-    from tendermint_tpu_torch.types.part_set import PartSetHeader
-
-    forged_header = _replace(honest_fc.header, app_hash=b"\xde\xad\xbe\xef" * 5)
-    forged_bid = BlockID(forged_header.hash(), PartSetHeader(total=1, hash=forged_header.hash()[:20]))
-    vals = honest_fc.validators
-    idx, _val = vals.get_by_address(compromised_priv.address)
-    if idx < 0:
-        raise ValueError("compromised validator not in the honest valset")
-    round_ = honest_fc.commit.round()
-    honest_pc = honest_fc.commit.precommits[idx]
-    vote = Vote(
-        validator_address=compromised_priv.address,
-        validator_index=idx,
-        height=honest_fc.height(),
-        round=round_,
-        timestamp=honest_pc.timestamp + 1 if honest_pc is not None else 1,
-        type=VOTE_TYPE_PRECOMMIT,
-        block_id=forged_bid,
-    )
-    sig = compromised_priv._signer.sign(vote.sign_bytes(chain_id))
-    precommits: list = [None] * len(vals.validators)
-    precommits[idx] = vote.with_signature(sig)
-    return FullCommit(header=forged_header, commit=Commit(block_id=forged_bid, precommits=precommits),
-                      validators=vals)
-
-
 def snapshot_server(store, state, snapshot_store, node_id: str, chain_id: str, hasher=None,
                     snapshot_interval: int = 0):
     """A started `Switch` that serves a snapshot as a node does, wired as
@@ -851,3 +832,91 @@ class ReadNode:
             dial(self.switch, addr)
         except Exception:
             logging.getLogger(__name__).warning("dial %s failed", addr)
+
+
+# -- bounded waits for the port's tests ----------------------------------------
+
+
+@contextlib.contextmanager
+def time_limit(seconds: float):
+    """Run the block under a limit of `seconds` of wall time: past it,
+    every thread's stack goes to stderr and the block raises
+    `TimeoutError`, so the test fails and its `finally` blocks stop its
+    nodes and children, where a wait that never ends would hold its
+    pytest worker for good. The limit is SIGALRM's, which reaches only
+    the main thread: off the main thread the block runs unbounded."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def expire(_signum, _frame):
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        raise TimeoutError(f"past the test's limit of {seconds} s")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+def time_limit_fixture(seconds: float):
+    """The body of an autouse pytest fixture that runs each test of a file
+    under `time_limit(seconds)`:
+    `_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))`."""
+
+    def limit():
+        with time_limit(seconds):
+            yield
+
+    return limit
+
+
+@contextlib.contextmanager
+def own_default_stacks():
+    """Run the block with process-wide verifier stacks of its own
+    (`services.verifier.default_verifier`): the stacks it makes are closed
+    after it and the earlier ones come back. A test whose nodes verify on
+    `default_verifier(device)` then neither meets a stack an earlier test
+    of its process changed or closed, nor leaves its own behind."""
+    from tendermint_tpu_torch.services import verifier
+
+    saved, verifier._DEFAULTS = verifier._DEFAULTS, {}
+    try:
+        yield
+    finally:
+        made, verifier._DEFAULTS = verifier._DEFAULTS, saved
+        for stack in made.values():
+            stack.close()
+
+
+def first_line(proc, timeout: float, log=None):
+    """The first line of the child `proc`'s stdout, read on a thread of
+    its own for at most `timeout` seconds. A child that prints no line in
+    that time is killed, and AssertionError carries the end of its
+    stderr (`log`: the path its stderr goes to)."""
+    got: list = []
+    reader = threading.Thread(target=lambda: got.append(proc.stdout.readline()), name="first-line", daemon=True)
+    reader.start()
+    reader.join(timeout)
+    if got:
+        return got[0]
+    proc.kill()
+    proc.wait(timeout=30)
+    tail = ""
+    if log is not None:
+        with open(log, "rb") as f:
+            tail = f.read()[-3000:].decode(errors="replace")
+    raise AssertionError(f"the child printed no line in {timeout} s (exit code {proc.returncode}):\n{tail}")
+
+
+def join_all(threads, timeout: float) -> None:
+    """Join every thread within `timeout` seconds in all; AssertionError
+    names those still alive then."""
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    alive = [t.name for t in threads if t.is_alive()]
+    assert not alive, f"threads still running after {timeout} s: {alive}"

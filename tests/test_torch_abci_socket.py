@@ -25,7 +25,7 @@ from tendermint_tpu_torch.abci.client import local_client_creator
 from tendermint_tpu_torch.abci.socket import ABCISocketServer, socket_client_creator
 from tendermint_tpu_torch.abci.types import Validator as ABCIValidator
 from tendermint_tpu_torch.codec.binary import Writer
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.types.block import Header
 from tendermint_tpu_torch.types.block_id import BlockID
 
@@ -39,6 +39,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def _grpc_modules():

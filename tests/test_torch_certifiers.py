@@ -57,7 +57,7 @@ from tendermint_tpu_torch.db.kv import MemDB, SQLiteDB
 from tendermint_tpu_torch.services import verifier as V
 from tendermint_tpu_torch.services.batcher import CoalescingVerifier
 from tendermint_tpu_torch.telemetry import REGISTRY
-from tendermint_tpu_torch.testing import ChainSim, lockrank_report, make_commit
+from tendermint_tpu_torch.testing import ChainSim, lockrank_report, make_commit, time_limit_fixture
 from tendermint_tpu_torch.types import Header, PrivValidator, Validator, ValidatorSet
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.errors import ErrTooMuchChange, ErrValidatorsChanged, ValidationError
@@ -81,6 +81,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def outcome(fn):

@@ -47,7 +47,7 @@ from tendermint_tpu_torch.consensus.replay_console import Playback, make_replay_
 from tendermint_tpu_torch.consensus.wal import WAL, EndHeightMessage, MsgRecord
 from tendermint_tpu_torch.db.kv import MemDB
 from tendermint_tpu_torch.node import Node
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.types.genesis import GenesisDoc
 from tendermint_tpu_torch.types.priv_validator import PrivValidatorFS
 
@@ -64,6 +64,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def _out(fn, *args) -> tuple[int, str]:

@@ -56,6 +56,7 @@ from tendermint_tpu_torch.types import evidence as P_evidence
 from tendermint_tpu_torch.types import params as P_params
 from tendermint_tpu_torch.types.part_set import Part
 from tendermint_tpu_torch.utils.bit_array import BitArray
+from tendermint_tpu_torch.testing import time_limit_fixture
 
 torch.set_num_threads(1)
 
@@ -77,6 +78,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- the codec: tests/test_codec.py, then byte for byte against the JAX codec -

@@ -47,7 +47,7 @@ from tendermint_tpu_torch.services.verifier import HostBatchVerifier
 from tendermint_tpu_torch.state import make_genesis_state
 from tendermint_tpu_torch.telemetry import heightlog
 from tendermint_tpu_torch.telemetry.heightlog import HeightLedger, VoteArrivalRollup
-from tendermint_tpu_torch.testing import lockrank_report, make_genesis
+from tendermint_tpu_torch.testing import lockrank_report, make_genesis, time_limit_fixture
 from tendermint_tpu_torch.types import events as ev
 from tendermint_tpu_torch.types.block import Block, Commit
 from tendermint_tpu_torch.types.block_id import BlockID
@@ -69,6 +69,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- tests/test_consensus.py ------------------------------------------------------

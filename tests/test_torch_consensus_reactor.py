@@ -44,7 +44,7 @@ from tendermint_tpu_torch.types.block import Block, Commit
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.proposal import Proposal
 
-from tendermint_tpu_torch.testing import TEST_CHAIN_ID as CHAIN
+from tendermint_tpu_torch.testing import TEST_CHAIN_ID as CHAIN, time_limit_fixture
 from tendermint_tpu_torch.testing import lockrank_report, make_genesis
 
 
@@ -57,6 +57,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- tests/test_reactor.py ------------------------------------------------------------

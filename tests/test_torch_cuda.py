@@ -25,7 +25,13 @@ from tendermint_tpu_torch.crypto import ed25519_ref
 from tendermint_tpu_torch.ops import ed25519_kernel as T
 from tendermint_tpu_torch.ops import ed25519_ladder as TL
 from tendermint_tpu_torch.ops import ed25519_tables as TT
-from tendermint_tpu_torch.testing import MIXED_ZERO_LANE, finish_edge_lanes, finish_mixed_lanes
+from tendermint_tpu_torch.testing import (
+    MIXED_ZERO_LANE, finish_edge_lanes, finish_mixed_lanes, first_line, time_limit_fixture,
+)
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(900))
 
 pytestmark = pytest.mark.cuda
 
@@ -1007,7 +1013,7 @@ def test_port_node_process_commits_on_the_card(dev, tmp_path):
                              "--rpc-laddr", f"tcp://127.0.0.1:{rpc_port}"],
                             cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     try:
-        assert b" up: p2p " in proc.stdout.readline()
+        assert b" up: p2p " in first_line(proc, 300)
         client = HTTPClient(f"127.0.0.1:{rpc_port}")
         res = client.broadcast_tx_commit(b"card=node")
         assert res["check_tx"]["code"] == 0 and res["deliver_tx"]["code"] == 0
@@ -1021,7 +1027,60 @@ def test_port_node_process_commits_on_the_card(dev, tmp_path):
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.wait()
+            proc.wait(timeout=30)
     records = [json.loads(line) for line in (home / "data" / "launches.jsonl").read_text().splitlines()]
     tables = [r for r in records if r["kind"] == "tables" and r.get("backend", "host") != "host"]
     assert tables and not [r for r in records if r.get("error")]
+
+
+def test_port_nemesis_commits_through_a_partition_on_the_card(dev, monkeypatch, tmp_path):
+    """The port's own nemesis book on the card: a `Nemesis` of 4
+    `NemesisNode`s with `device=` the card and no verifier factory, each
+    node on the signature cache of its own that the book gives it over
+    `default_verifier(dev)`'s table backend, at minimum device batch 0,
+    commits 5 heights
+    through a minority partition and its heal (the cut node catches up)
+    with equal blocks and app hashes on every node; the votes launch
+    `ladder` and the commits `madd_chain_entries`, each followed by the
+    finish, and the launch ledger's records account for every launch."""
+    import time
+
+    from tendermint_tpu_torch.services import verifier as V
+    from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG
+    from tendermint_tpu_torch.testing import Nemesis, kernel_launches, ledger_launches
+
+    monkeypatch.setattr(V, "_DEFAULTS", {})
+    stack = V.default_verifier(dev)
+    monkeypatch.setattr(stack.inner.primary, "_min_batch", 0)
+    wrappers = {"madd_chain_entries": TT.sum_entries, "madd_chain_fused": TT.fused_chain, "ladder": TL.ladder,
+                "finish_encode_compare": TT.finish_encode_compare}
+    try:
+        mark, before = len(LAUNCHLOG), {k: w.launches for k, w in wrappers.items()}
+        with Nemesis(4, home=str(tmp_path), device=dev) as net:
+            assert all(n.verifier.inner is stack.inner for n in net.nodes)
+            assert len({id(n.verifier.cache) for n in net.nodes}) == 4
+            net.wait_height(2, timeout=120)
+            net.partition({0, 1, 2}, {3})
+            net.wait_progress(delta=2, nodes=[0, 1, 2], timeout=120)
+            net.heal()
+            net.wait_height(5, timeout=120)
+        top = min(net.heights())
+        for h in range(1, top + 1):
+            blocks = [n.store.load_block(h) for n in net.nodes]
+            assert len({b.hash() for b in blocks}) == 1 and len({b.header.app_hash for b in blocks}) == 1, h
+        torch.cuda.synchronize()
+        deadline = time.time() + 30
+        while True:  # a dispatch unit commits its record at its join
+            delta = {k: w.launches - before[k] for k, w in wrappers.items()}
+            got, want = ledger_launches(LAUNCHLOG.recent()[mark:]), kernel_launches(
+                {**dict.fromkeys(("sha256_masked", "ripemd160_masked"), 0), **delta})
+            if got == want or time.time() > deadline:
+                break
+            time.sleep(0.01)
+        assert got == want, (got, want)
+        assert delta["ladder"] > 0 and delta["madd_chain_entries"] > 0, delta
+        assert not [r for r in LAUNCHLOG.recent()[mark:] if r.get("error")]
+        snap = stack.inner.snapshot()
+        assert snap["fallback_calls"] == 0 and snap["total_failures"] == 0
+    finally:
+        stack.close()

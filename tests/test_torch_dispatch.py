@@ -33,7 +33,7 @@ from tendermint_tpu_torch.telemetry import REGISTRY
 from tendermint_tpu_torch.utils import circuit as P_circuit
 from tendermint_tpu_torch.utils import fail
 from tendermint_tpu_torch.utils.circuit import OPEN, CircuitBreaker
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 from tests.helpers import det_priv_keys
 
@@ -49,6 +49,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 @pytest.fixture(autouse=True)
@@ -96,7 +101,7 @@ class TestDispatchQueue:
         q = queue(depth=8, name="t-fifo")
         order = []
         handles = [q.submit(lambda i=i: (order.append(i), i * 10)[1]) for i in range(8)]
-        assert [h.result() for h in handles] == [i * 10 for i in range(8)]
+        assert [h.result(60) for h in handles] == [i * 10 for i in range(8)]
         assert order == list(range(8))
 
     def test_depth_bounds_inflight_and_submit_blocks(self, queue):
@@ -109,7 +114,7 @@ class TestDispatchQueue:
         def submit_third():
             h = q.submit(lambda: "third")
             third_submitted.set()
-            h.result()
+            h.result(60)
 
         t = threading.Thread(target=submit_third, daemon=True)
         t.start()
@@ -117,9 +122,9 @@ class TestDispatchQueue:
         assert not third_submitted.is_set()
         assert q.inflight() == 2
         gate.set()
-        h1.result()
+        h1.result(60)
         assert third_submitted.wait(5)
-        assert h2.result() == "second"
+        assert h2.result(60) == "second"
         t.join(timeout=5)
         assert not t.is_alive()
         assert q.inflight() == 0
@@ -140,8 +145,8 @@ class TestDispatchQueue:
         h = q.submit(boom)
         for _ in range(2):
             with pytest.raises(ValueError, match="kernel exploded"):
-                h.result()
-        assert q.submit(lambda: 7).result() == 7
+                h.result(60)
+        assert q.submit(lambda: 7).result(60) == 7
 
     def test_finalize_runs_on_joining_thread(self, queue):
         q = queue(depth=2, name="t-fin")
@@ -155,7 +160,7 @@ class TestDispatchQueue:
             threads["finalize"] = threading.current_thread().name
             return v + 1
 
-        assert q.submit(launch, finalize).result() == 4
+        assert q.submit(launch, finalize).result(60) == 4
         assert threads["launch"].startswith("dispatch-")
         assert threads["finalize"] == threading.current_thread().name
 
@@ -169,24 +174,24 @@ class TestDispatchQueue:
 
         h = q.submit(lambda: 21).then(tally)
         assert isinstance(h, ChainedHandle)
-        assert h.result() == 42 and h.result() == 42
+        assert h.result(60) == 42 and h.result(60) == 42
         assert calls == [21]
         h2 = q.submit(lambda: (_ for _ in ()).throw(RuntimeError("x"))).then(tally)
         with pytest.raises(RuntimeError):
-            h2.result()
+            h2.result(60)
 
     def test_completed_handle(self):
-        assert CompletedHandle(5).result() == 5
+        assert CompletedHandle(5).result(60) == 5
         assert CompletedHandle(5).done()
-        assert CompletedHandle(5).then(lambda v: v + 1).result() == 6
+        assert CompletedHandle(5).then(lambda v: v + 1).result(60) == 6
         with pytest.raises(KeyError):
-            CompletedHandle(exc=KeyError("k")).result()
+            CompletedHandle(exc=KeyError("k")).result(60)
 
     def test_close_rejects_new_submits(self, queue):
         q = queue(depth=2, name="t-close")
         h = q.submit(lambda: 1)
         q.close()
-        assert h.result() == 1
+        assert h.result(60) == 1
         with pytest.raises(RuntimeError, match="closed"):
             q.submit(lambda: 2)
 
@@ -194,7 +199,7 @@ class TestDispatchQueue:
         q = queue(depth=3, name="t-metrics")
         h = q.submit(lambda: time.sleep(0.02) or 1, kind="hash")
         time.sleep(0.005)  # overlapped host work
-        assert h.result() == 1
+        assert h.result(60) == 1
         assert REGISTRY.get("tendermint_dispatch_inflight").labels(queue="t-metrics").value == 0
         wait = REGISTRY.get("tendermint_dispatch_queue_wait_seconds")
         assert wait.labels(queue="t-metrics").value["count"] >= 1
@@ -208,7 +213,7 @@ class TestAsyncVerifierSurface:
     def test_host_verifier_async_matches_sync(self, queue):
         v = V.HostBatchVerifier()
         triples = _triples(6, corrupt=(2, 4))
-        got = v.verify_batch_async(triples, queue=queue(depth=2, name="t-host")).result()
+        got = v.verify_batch_async(triples, queue=queue(depth=2, name="t-host")).result(60)
         np.testing.assert_array_equal(got, v.verify_batch(triples))
         np.testing.assert_array_equal(got, _jax_host(triples))
 
@@ -217,10 +222,10 @@ class TestAsyncVerifierSurface:
         torch version on the CPU, on the queue's worker."""
         v = V.DeviceBatchVerifier(device="cpu", min_device_batch=0)
         triples = _triples(5, corrupt=(1,))
-        got = v.verify_batch_async(triples, queue=queue(depth=2)).result()
+        got = v.verify_batch_async(triples, queue=queue(depth=2)).result(60)
         assert list(got) == [True, False, True, True, True]
         small = V.DeviceBatchVerifier(device="cpu", min_device_batch=10**6)
-        assert list(small.verify_batch_async(triples, queue=queue(depth=2)).result()) == list(got)
+        assert list(small.verify_batch_async(triples, queue=queue(depth=2)).result(60)) == list(got)
 
     def test_table_verifier_commits_async_matches_sync(self, queue):
         v = V.TableBatchVerifier(device="cpu", min_device_batch=0)
@@ -232,7 +237,7 @@ class TestAsyncVerifierSurface:
         bad[2] = bytes(64)
         lanes = [(msgs, sigs), (msgs, bad)]
         sync = v.verify_commits(pubs, lanes)
-        got = v.verify_commits_async(pubs, lanes, queue=queue(depth=2)).result()
+        got = v.verify_commits_async(pubs, lanes, queue=queue(depth=2)).result(60)
         np.testing.assert_array_equal(got, sync)
         assert got[0].all() and got[1].tolist() == [True, True, False, True]
 
@@ -248,7 +253,7 @@ class TestBreakerThroughHandles:
         )
         triples = _triples(6, corrupt=(0, 3))
         fail.set_device_fault("verify", 1)
-        got = v.verify_batch_async(triples, queue=queue(depth=2, name="t-fault")).result()
+        got = v.verify_batch_async(triples, queue=queue(depth=2, name="t-fault")).result(60)
         np.testing.assert_array_equal(got, _jax_host(triples))
         assert v.breaker.state == OPEN
         assert v._dispatch.fallback_calls >= 1
@@ -266,7 +271,7 @@ class TestBreakerThroughHandles:
 
         v = ResilientVerifier(_MaterializeBomb(), breaker=CircuitBreaker(failure_threshold=1, reset_timeout_s=60))
         triples = _triples(4, corrupt=(2,))
-        got = v.verify_batch_async(triples, queue=queue(depth=2)).result()
+        got = v.verify_batch_async(triples, queue=queue(depth=2)).result(60)
         np.testing.assert_array_equal(got, _jax_host(triples))
         assert v.breaker.state == OPEN
 
@@ -282,11 +287,11 @@ class TestBreakerThroughHandles:
         handles = []
         for i, triples in enumerate(batches):
             if i >= q.depth:
-                got = handles[i - q.depth][1].result()
+                got = handles[i - q.depth][1].result(60)
                 np.testing.assert_array_equal(got, _jax_host(batches[i - q.depth]))
             handles.append((i, v.verify_batch_async(triples, queue=q)))
         for i, h in handles:
-            got = h.result()
+            got = h.result(60)
             np.testing.assert_array_equal(got, _jax_host(batches[i]))
             assert not got[i] and got.sum() == 5
         assert v._dispatch.fallback_calls == 2
@@ -303,7 +308,7 @@ class TestBreakerThroughHandles:
         bad = list(sigs)
         bad[1] = bytes(64)
         fail.set_device_fault("verify")
-        got = v.verify_commits_async(pubs, [(msgs, sigs), (msgs, bad)], queue=queue(depth=2)).result()
+        got = v.verify_commits_async(pubs, [(msgs, sigs), (msgs, bad)], queue=queue(depth=2)).result(60)
         assert got.shape == (2, 4)
         assert got[0].all() and not got[1][1] and got[1].sum() == 3
         assert v.breaker.state == OPEN
@@ -349,9 +354,9 @@ class TestVotePipelineOrdering:
             pending, masks = [], []
             for r in range(3):
                 if len(pending) >= cs.VOTE_PIPELINE_DEPTH:
-                    masks.append(pending.pop(0).result())
+                    masks.append(pending.pop(0).result(60))
                 pending.append(cs._preverify_votes_async(run_votes(r)))
-            masks.extend(h.result() for h in pending)
+            masks.extend(h.result(60) for h in pending)
         finally:
             cs._vote_dispatch.close()
         assert masks == [[True] * 4, [True, True, False, True], [True] * 4]
@@ -409,7 +414,7 @@ def test_jax_and_port_pipelines_agree_handle_for_handle(queue):
         masks, pending = [], []
         for i, triples in enumerate(batches, start=1):
             if len(pending) >= q.depth:
-                masks.append(pending.pop(0).result().tolist())
+                masks.append(pending.pop(0).result(60).tolist())
             if i in injected:
                 fmod.set_device_fault("verify", 1)
             clock[0] += 0.6
@@ -417,7 +422,7 @@ def test_jax_and_port_pipelines_agree_handle_for_handle(queue):
             while not pending[-1].done():  # launched: the fault budget was this call's
                 time.sleep(0.001)
             fmod.clear_device_faults()
-        masks.extend(h.result().tolist() for h in pending)
+        masks.extend(h.result(60).tolist() for h in pending)
         sides[name] = (masks, transitions, rv.snapshot(), primary.launches)
     assert sides["jax"] == sides["port"]
     masks, transitions, snap, _ = sides["port"]

@@ -37,7 +37,7 @@ from tendermint_tpu_torch.services import hasher as port_hasher
 from tendermint_tpu_torch.services import verifier as port_verifier
 from tendermint_tpu_torch.services.batcher import CoalescingVerifier
 from tendermint_tpu_torch.services.resilient import ResilientVerifier
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 torch.set_num_threads(1)
 
@@ -51,6 +51,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 

@@ -23,7 +23,7 @@ import pytest
 from tendermint_tpu_torch.crypto import PrivKey
 from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.services.verifier import HostBatchVerifier
-from tendermint_tpu_torch.testing import TEST_CHAIN_ID as CHAIN_ID, ChainSim, lockrank_report
+from tendermint_tpu_torch.testing import TEST_CHAIN_ID as CHAIN_ID, ChainSim, lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.types.block import Block, Commit, EvidenceData
 from tendermint_tpu_torch.types.block_id import BlockID
 from tendermint_tpu_torch.types.errors import ValidationError
@@ -48,6 +48,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- tests/test_evidence.py ----------------------------------------------------------

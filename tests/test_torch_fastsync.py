@@ -61,6 +61,7 @@ from tendermint_tpu_torch.testing import (
     make_block_id,
     preloaded_reactor,
     serving_switch,
+    time_limit_fixture,
 )
 from tendermint_tpu_torch.types.genesis import GenesisDoc
 
@@ -81,6 +82,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def wait_until(pred, timeout=60.0, msg="condition"):

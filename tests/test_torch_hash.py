@@ -32,6 +32,11 @@ from tendermint_tpu_torch.ops import padding as TP
 from tendermint_tpu_torch.ops import ripemd160_kernel as TR
 from tendermint_tpu_torch.ops import sha256_kernel as T256
 from tendermint_tpu_torch.ops import sha512_kernel as T512
+from tendermint_tpu_torch.testing import time_limit_fixture
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 CSRC = pathlib.Path(TP.__file__).resolve().parents[1] / "csrc"
 # lengths around the SHA-256/RIPEMD-160 (55/56/64) and SHA-512

@@ -21,7 +21,7 @@ from tendermint_tpu.types.evidence import evidence_hash
 from tendermint_tpu.types.errors import ValidationError
 from tendermint_tpu_torch.ops import merkle_kernel as MK
 from tendermint_tpu_torch.services import hasher as H
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 
 @pytest.fixture(autouse=True)
@@ -33,6 +33,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 ALGOS = ["sha256", "ripemd160"]

@@ -22,6 +22,11 @@ import subprocess
 import sys
 
 import pytest
+from tendermint_tpu_torch.testing import time_limit_fixture
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "tendermint_tpu_torch"
@@ -220,31 +225,279 @@ DECLARED = {
         ("ticker=MockTicker(fire_steps=()),  # records drive everything\n",
          "ticker=MockTicker(fire_steps=()),  # records drive everything\n            verifier=verifier,\n"),
     ),
+    # the chaos book (`testing/`): `Nemesis`, its nodes and the scenario
+    # runner take `device=` as the port's `Node` does; each run of a
+    # `NemesisNode` given no verifier verifies on a signature cache and
+    # coalescer of its own over `default_verifier(device)`'s backend, the
+    # card's stack, closed when the node stops; `Nemesis.restart` waits
+    # for the crashed node's links to drop (a switch refuses a peer id it
+    # still holds)
+    "testing/nemesis.py": (
+        ("""_log = logger("nemesis")
+""", """_log = logger("nemesis")
+
+RESTART_DROP_TIMEOUT_S = 30.0
+"""),
+        ("""        hasher=None,
+        app_factory=None,
+    ) -> None:""", """        hasher=None,
+        app_factory=None,
+        device=None,
+    ) -> None:"""),
+        ("""        self.verifier = verifier
+        self.hasher = hasher
+        self.state_db = MemDB()""", """        self.verifier = verifier
+        self.own_verifier = verifier is None
+        self.device = device
+        self.hasher = hasher
+        self.state_db = MemDB()"""),
+        ("""    def _build(self) -> None:
+        from tendermint_tpu.abci.client import local_client_creator""", """    @staticmethod
+    def own_stack(device):
+        from tendermint_tpu.services.batcher import CoalescingVerifier
+        from tendermint_tpu.services.verifier import default_verifier
+
+        stack = default_verifier(device)
+        return CoalescingVerifier(stack.inner) if isinstance(stack, CoalescingVerifier) else stack
+
+    def _build(self) -> None:
+        from tendermint_tpu.abci.client import local_client_creator"""),
+        ("""        state = load_state(self.state_db)
+        self.store = BlockStore(self.store_db)
+        self.conns""", """        if self.own_verifier:
+            self.verifier = self.own_stack(self.device)
+        state = load_state(self.state_db)
+        self.store = BlockStore(self.store_db)
+        self.conns"""),
+        ("""            self.height_ledger.close()
+            self.running = False""", """            self.height_ledger.close()
+            if self.own_verifier and hasattr(self.verifier, "coalescer"):
+                self.verifier.coalescer.close()
+            self.running = False"""),
+        ("""        node = self.nodes[i]
+        node.restart()""", """        node = self.nodes[i]
+        self.wait_dropped(i)
+        node.restart()"""),
+        ("""    def add_node(self, node) -> int:""", """    def wait_dropped(self, i: int, timeout: float = RESTART_DROP_TIMEOUT_S) -> None:
+        name = self.nodes[i].switch.node_info.node_id
+        deadline = time.monotonic() + timeout
+        while any(
+            name in {p.id for p in n.switch.peers()}
+            for j, n in enumerate(self.nodes)
+            if j != i and n.running
+        ):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"node{i}'s links still up {timeout} s after its crash")
+            time.sleep(0.01)
+
+    def add_node(self, node) -> int:"""),
+        ("""        app_factory=None,
+        config_mutator=None,
+    ) -> None:""", """        app_factory=None,
+        config_mutator=None,
+        device=None,
+    ) -> None:"""),
+        ("""        self.hasher = hasher
+        self._dbs""", """        self.hasher = hasher
+        self.device = device
+        self._dbs"""),
+        ("""            hasher=self.hasher,
+        )
+""", """            hasher=self.hasher,
+            device=self.device,
+        )
+"""),
+        ("""        n_active: int | None = None,
+    ) -> None:
+        import tempfile
+""", """        n_active: int | None = None,
+        device=None,
+    ) -> None:
+        import tempfile
+"""),
+        ("""                hasher=hasher_factory(i) if hasher_factory else None,
+            )""", """                hasher=hasher_factory(i) if hasher_factory else None,
+                device=device,
+            )"""),
+        ("""        def factory(i, genesis, privs, home, chain_id, config=None, verifier=None, hasher=None):
+            return NemesisNode(""", """        def factory(i, genesis, privs, home, chain_id, config=None, verifier=None, hasher=None, device=None):
+            return NemesisNode("""),
+        ("""                app_factory=app_factory,
+            )
+
+        return factory""", """                app_factory=app_factory,
+                device=device,
+            )
+
+        return factory"""),
+        ("""        def factory(i, genesis, privs, home, chain_id, config=None, verifier=None, hasher=None):
+            return FullNemesisNode(""", """        def factory(i, genesis, privs, home, chain_id, config=None, verifier=None, hasher=None, device=None):
+            return FullNemesisNode("""),
+        ("""                config_mutator=config_mutator,
+            )""", """                config_mutator=config_mutator,
+                device=device,
+            )"""),
+    ),
+    # the evidence poll sleeps between its reads of the stores: a poll
+    # without a pause holds the GIL from the nodes it waits on
+    "testing/byzantine.py": (
+        ("""        if len(found) == len(targets):
+            return found
+""", """        if len(found) == len(targets):
+            return found
+        time.sleep(0.05)
+"""),
+    ),
+    # the load feeder's `TxFactory` is the port's copy (`testing/loadgen.py`)
+    "testing/scenario.py": (
+        ("from tools.loadgen import TxFactory", "from tendermint_tpu.testing.loadgen import TxFactory"),
+        ("""    def __init__(self, home: str | None = None) -> None:
+        self.home = home
+""", """    def __init__(self, home: str | None = None, device=None) -> None:
+        self.home = home
+        self.device = device
+"""),
+        ("""            node_factory=node_factory,
+        )""", """            node_factory=node_factory,
+            device=self.device,
+        )"""),
+        ("include_slow: bool = True) -> list[dict]:", "include_slow: bool = True, device=None) -> list[dict]:"),
+        ("ScenarioRunner(home=home).run(spec)", "ScenarioRunner(home=home, device=device).run(spec)"),
+        # the bridging probe's light client verifies on `default_verifier(device)`
+        ("def bisect_bridge(node, chain_id: str, genesis_privs, tip: int | None = None) -> dict:",
+         "def bisect_bridge(node, chain_id: str, genesis_privs, tip: int | None = None, device=None) -> dict:"),
+        ("""    from tendermint_tpu.lightclient.bisect import BisectingCertifier
+    from tendermint_tpu.state.state import load_state
+""", """    from tendermint_tpu.lightclient.bisect import BisectingCertifier
+    from tendermint_tpu.services.verifier import default_verifier
+    from tendermint_tpu.state.state import load_state
+"""),
+        ("""        chain_id, validators=genesis_vals, height=0, source=source
+    )""", """        chain_id, validators=genesis_vals, height=0, source=source,
+        verifier=default_verifier(device),
+    )"""),
+        ("""                    net.nodes[0], net.chain_id, genesis_privs
+                )""", """                    net.nodes[0], net.chain_id, genesis_privs, device=self.device
+                )"""),
+    ),
+    # the book's entry points run as `python -m tendermint_tpu_torch.tools.*`:
+    # no `sys.path` edit, and a `--device` flag
+    "tools/scenario_run.py": (
+        ("""import tempfile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+""", """import tempfile
+"""),
+        ("""    ap.add_argument("--home", default=None, help="scratch dir (default: tmp)")
+""", """    ap.add_argument("--home", default=None, help="scratch dir (default: tmp)")
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+"""),
+        ("ScenarioRunner(home=home).run(spec)", "ScenarioRunner(home=home, device=args.device).run(spec)"),
+    ),
+    "tools/nemesis_demo.py": (
+        ("""import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+""", """import time
+"""),
+        ("""        node_factory=Nemesis.full_node_factory(),
+        verifier_factory=verifier_factory,
+    ) as net:""", """        node_factory=Nemesis.full_node_factory(),
+        verifier_factory=verifier_factory,
+        device=args.device,
+    ) as net:"""),
+        ("""        home=tempfile.mkdtemp(prefix="nemesis-byz-"),
+        verifier_factory=verifier_factory,
+    ) as net:""", """        home=tempfile.mkdtemp(prefix="nemesis-byz-"),
+        verifier_factory=verifier_factory,
+        device=args.device,
+    ) as net:"""),
+        ("""                3, FaultedApplyApp, args.nodes, fail_from_height=4
+            )
+        ),
+    ) as net:""", """                3, FaultedApplyApp, args.nodes, fail_from_height=4
+            )
+        ),
+        device=args.device,
+    ) as net:"""),
+        ("""                3, ForgedHashApp, args.nodes, fail_from_height=3
+            )
+        ),
+    ) as net:""", """                3, ForgedHashApp, args.nodes, fail_from_height=3
+            )
+        ),
+        device=args.device,
+    ) as net:"""),
+        ("""        args.nodes, home=home, node_factory=Nemesis.full_node_factory()
+    ) as net:""", """        args.nodes, home=home, node_factory=Nemesis.full_node_factory(), device=args.device
+    ) as net:"""),
+        ("""                config_mutator=replica_mutator,
+            )""", """                config_mutator=replica_mutator,
+                device=args.device,
+            )"""),
+        ("reports = run_library(home=home, include_slow=not args.fast)",
+         "reports = run_library(home=home, include_slow=not args.fast, device=args.device)"),
+        ("""    ap.add_argument(
+        "--fuzz-frames", type=int, default=5000, help="byzantine fuzz frame count"
+    )
+""", """    ap.add_argument(
+        "--fuzz-frames", type=int, default=5000, help="byzantine fuzz frame count"
+    )
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+"""),
+        ("""        args.nodes, home=tempfile.mkdtemp(prefix="nemesis-demo-"),
+        verifier_factory=verifier_factory,
+    ) as net:""", """        args.nodes, home=tempfile.mkdtemp(prefix="nemesis-demo-"),
+        verifier_factory=verifier_factory,
+        device=args.device,
+    ) as net:"""),
+    ),
+    # the package also exports the fixtures the port's tests and
+    # `chip_smoke.py` share (`testing/fixtures.py`)
+    "testing/__init__.py": (
+        ("from tendermint_tpu.testing.nemesis import (\n",
+         "from tendermint_tpu.testing.fixtures import *  # noqa: F401,F403\n"
+         "from tendermint_tpu.testing.fixtures import __all__ as _FIXTURES\n"
+         "from tendermint_tpu.testing.nemesis import (\n"),
+        ('    "wait_evidence_committed",\n]', '    "wait_evidence_committed",\n    *_FIXTURES,\n]'),
+    ),
 }
 
 
-@pytest.mark.parametrize("rel", NODE_MODULES)
+# the chaos book (`testing/`) and its two entry points, whose JAX files
+# are the repo's `tools/`
+BOOK_MODULES = (
+    "testing/__init__.py", "testing/topology.py", "testing/nemesis.py", "testing/byzantine.py",
+    "testing/scenario.py", "tools/scenario_run.py", "tools/nemesis_demo.py",
+)
+
+
+def _jax_file(rel: str) -> pathlib.Path:
+    return REPO / rel if rel.startswith("tools/") else REPO / "tendermint_tpu" / rel
+
+
+@pytest.mark.parametrize("rel", NODE_MODULES + BOOK_MODULES)
 def test_node_modules_stand_where_the_jax_package_has_them(rel):
-    port, jax = PORT / rel, REPO / "tendermint_tpu" / rel
+    port, jax = PORT / rel, _jax_file(rel)
     assert port.is_file() and jax.is_file()
     bad = [(line, n) for line, n, _ in _imports(port) if _forbidden(n) or _is(n, "cryptography") or _is(n, "grpc")]
     assert not bad, bad
 
 
-@pytest.mark.parametrize("rel", NODE_MODULES)
+@pytest.mark.parametrize("rel", NODE_MODULES + BOOK_MODULES)
 def test_node_modules_are_the_jax_modules_apart_from_the_declared_differences(rel):
-    text = (REPO / "tendermint_tpu" / rel).read_text()
+    text = _jax_file(rel).read_text()
     for jax_src, port_src in DECLARED.get(rel, ()):
         assert text.count(jax_src) == 1, (rel, jax_src)
         text = text.replace(jax_src, port_src)
-    assert _code(PORT / rel) == _code(REPO / "tendermint_tpu" / rel, text)
+    assert _code(PORT / rel) == _code(_jax_file(rel), text)
 
 
 def test_a_declared_difference_is_needed():
     """Without its declared differences, each such module differs from
     its JAX counterpart: every entry of DECLARED is still needed."""
     for rel in DECLARED:
-        assert _code(PORT / rel) != _code(REPO / "tendermint_tpu" / rel), rel
+        assert _code(PORT / rel) != _code(_jax_file(rel)), rel
 
 
 def test_node_provider_stays_out_of_the_certifiers_exports():
@@ -318,3 +571,79 @@ def test_chip_smoke_fails_alone(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_the_load_generator_is_the_tools_tx_factory():
+    """`testing/loadgen.py` holds the repo's `tools/loadgen.py` `TxFactory`,
+    its AST apart from docstrings, and nothing else but its imports."""
+
+    def tx_factory(path):
+        (cls,) = [n for n in ast.parse(path.read_text()).body if isinstance(n, ast.ClassDef)
+                  and n.name == "TxFactory"]
+        return _code(path, ast.unparse(cls))
+
+    port = PORT / "testing" / "loadgen.py"
+    assert tx_factory(port) == tx_factory(REPO / "tools" / "loadgen.py")
+    body = ast.parse(port.read_text()).body[1:]  # past the docstring
+    assert [type(n).__name__ for n in body] == ["ImportFrom", "Import", "Import", "ClassDef"]
+
+
+# a one-node scenario the runner plays in a few seconds
+_SOLO_SPEC = {"name": "solo", "nodes": 1, "run": {"target_height": 3, "timeout_s": 60}}
+
+
+@pytest.mark.parametrize("tool", ["scenario_run", "nemesis_demo"])
+def test_the_book_entry_points_run_as_modules_and_import_no_jax(tool, tmp_path):
+    """`python -m tendermint_tpu_torch.tools.<tool> --device cpu` plays a
+    one-node net to its end (exit code 0), and `-X importtime` lists no
+    module of jax, of the JAX package, of `cryptography` or `grpc`."""
+    import json
+
+    spec = tmp_path / "solo.json"
+    spec.write_text(json.dumps(_SOLO_SPEC))
+    args = {
+        "scenario_run": ["--spec", str(spec), "--home", str(tmp_path / "home")],
+        "nemesis_demo": ["--nodes", "1", "--heights", "1"],
+    }[tool]
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", f"tendermint_tpu_torch.tools.{tool}", *args, "--device", "cpu"],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    imported = {line.rsplit("|", 1)[1].strip() for line in out.stderr.splitlines()
+                if line.startswith("import time:") and line.count("|") == 2}
+    assert "tendermint_tpu_torch.testing.nemesis" in imported
+    bad = sorted(m for m in imported if _forbidden(m) or _is(m, "cryptography") or _is(m, "grpc"))
+    assert not bad, bad
+    assert ("solo  PASS" if tool == "scenario_run" else "all invariants held") in out.stdout, out.stdout[-2000:]
+
+
+# every name the port's tests and `chip_smoke.py` imported from the
+# fixtures module `tendermint_tpu_torch/testing.py` before it became the
+# package `testing/`
+FIXTURE_NAMES = (
+    "ChainSim", "MIXED_ZERO_LANE", "NetValidator", "ReadNode", "SignedChainSim", "StateSyncingNode",
+    "StormValidator", "SyncingNode", "TEST_CHAIN_ID", "byzantine_signed_vote", "chain_store", "det_priv_keys",
+    "device_flat_rows", "finish_edge_lanes", "finish_mixed_lanes", "forge_fullcommit", "forge_newest_precommit",
+    "kernel_launches", "ledger_launches", "lockrank_report", "make_block_id", "make_commit", "make_genesis",
+    "make_validators", "preloaded_reactor", "serving_switch", "signed_vote", "snapshot_server", "start_net",
+)
+
+
+def test_the_testing_package_keeps_the_fixtures_names():
+    """Each name still imports from `tendermint_tpu_torch.testing`; the
+    package-level `make_genesis` is the fixtures' (n_vals, power,
+    chain_id), the nemesis one stays at `testing.nemesis`, and
+    `forge_fullcommit` is the byzantine module's, as in the JAX package."""
+    import inspect
+
+    import tendermint_tpu_torch.testing as testing
+    from tendermint_tpu_torch.testing import byzantine, fixtures, nemesis
+
+    assert all(hasattr(testing, name) for name in FIXTURE_NAMES)
+    assert set(FIXTURE_NAMES) <= set(testing.__all__)
+    assert testing.make_genesis is fixtures.make_genesis
+    assert list(inspect.signature(testing.make_genesis).parameters) == ["n_vals", "power", "chain_id"]
+    assert list(inspect.signature(nemesis.make_genesis).parameters) == ["n_vals", "chain_id", "n_active"]
+    assert testing.forge_fullcommit is byzantine.forge_fullcommit
+    assert not hasattr(fixtures, "forge_fullcommit")

@@ -33,7 +33,7 @@ from tendermint_tpu_torch.services.dispatch import DispatchQueue
 from tendermint_tpu_torch.telemetry import REGISTRY, launchlog
 from tendermint_tpu_torch.telemetry import tracectx as _tc
 from tendermint_tpu_torch.telemetry.launchlog import LAUNCHLOG, LaunchLedger
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.utils import fail
 
 torch.set_num_threads(1)
@@ -76,6 +76,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def _counter(name, **labels) -> float:

@@ -55,7 +55,7 @@ from tendermint_tpu_torch.lightclient import (
 from tendermint_tpu_torch.lightclient import reactor as lcr
 from tendermint_tpu_torch.p2p import NodeInfo, Switch, connect_switches, tcp
 from tendermint_tpu_torch.services.verifier import HostBatchVerifier
-from tendermint_tpu_torch.testing import forge_fullcommit, lockrank_report
+from tendermint_tpu_torch.testing import forge_fullcommit, lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.types.errors import (
     ErrNoSourceCommit,
     ErrTooMuchChange,
@@ -82,6 +82,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def _cert(**kw):

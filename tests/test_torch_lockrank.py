@@ -20,7 +20,7 @@ import pytest
 from tendermint_tpu.utils import lockrank as J_lockrank
 from tendermint_tpu_torch.services.batcher import VerifiedSigCache
 from tendermint_tpu_torch.telemetry import REGISTRY
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.utils import lockrank
 from tendermint_tpu_torch.utils.lockrank import (
     LockRankViolation,
@@ -55,6 +55,11 @@ def _port_lockrank_guard(_clean_lockrank):
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def test_rank_table_matches_the_jax_package():
@@ -101,7 +106,8 @@ class TestRankInversion:
 
         t = threading.Thread(target=legal, name="legal-order")
         t.start()
-        t.join()
+        t.join(timeout=30)
+        assert not t.is_alive()
         with hi:
             with lo:
                 pass
@@ -156,7 +162,8 @@ class TestCycleDetection:
 
         th = threading.Thread(target=t1, name="ab-thread")
         th.start()
-        th.join()
+        th.join(timeout=30)
+        assert not th.is_alive()
         with b:
             with a:  # closes the cycle in the order graph, no contention
                 pass
@@ -177,7 +184,8 @@ class TestCycleDetection:
 
             t = threading.Thread(target=run, name=name)
             t.start()
-            t.join()
+            t.join(timeout=30)
+            assert not t.is_alive()
 
         nest(a, b, "t-ab")
         nest(b, c, "t-bc")

@@ -34,7 +34,7 @@ from tendermint_tpu_torch.mempool import Mempool, TxCache, make_signed_tx, parse
 from tendermint_tpu_torch.services.batcher import CoalescingVerifier
 from tendermint_tpu_torch.services.verifier import HostBatchVerifier
 from tendermint_tpu_torch.telemetry import REGISTRY
-from tendermint_tpu_torch.testing import ChainSim, lockrank_report
+from tendermint_tpu_torch.testing import ChainSim, join_all, lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.types.errors import ValidationError
 from tendermint_tpu_torch.types.tx import Txs
 
@@ -48,6 +48,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- tests/test_mempool_ingress.py --------------------------------------------------
@@ -204,8 +209,7 @@ class TestWALConcurrentWriters:
         ]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join()
+        join_all(threads, 60)
         records = mp.load_wal()
         assert len(records) == n_threads * per_thread
         assert set(records) == set(txs)
@@ -229,8 +233,7 @@ class TestWALConcurrentWriters:
         ]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join()
+        join_all(threads, 60)
         counter_of = {tx: c for c, tx in mp.get_after(0)}
         wal_counters = [counter_of[r] for r in mp.load_wal()]
         assert len(wal_counters) == n_threads * per_thread
@@ -459,8 +462,7 @@ class TestIngressBatcher:
         ]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join()
+        join_all(threads, 60)
         assert mp.size() == 48
         snap = fam.value
         windows = snap["count"] - n0

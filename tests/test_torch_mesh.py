@@ -48,7 +48,7 @@ from tendermint_tpu_torch.services.verifier import (
 )
 from tendermint_tpu_torch.telemetry import REGISTRY
 from tendermint_tpu_torch.utils import fail
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 torch.set_num_threads(1)
 
@@ -62,6 +62,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 CPU = torch.device("cpu")
 SHARDS = 8  # host-executor meshes: the JAX tests' 8 virtual devices

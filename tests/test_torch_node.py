@@ -1,24 +1,27 @@
-"""The JAX package's node, nemesis book and scenario library on the
-port's backends.
+"""The port's own nemesis book and scenario library
+(`tendermint_tpu_torch.testing`) on the port's backends, and the seams
+where the JAX package's host plane hands its objects to the port.
 
-The host plane (`tendermint_tpu.node`, `tendermint_tpu.testing`) is
-composed with fresh port stacks, one a node:
+The port's `Nemesis`, `NemesisNode`, `FullNemesisNode` and
+`ScenarioRunner` are composed with fresh port stacks, one a node:
 `CoalescingVerifier(ResilientVerifier(TableBatchVerifier()))` and a
-`ResilientTreeHasher`. Sites of the host plane that take no verifier
-fall back to the JAX `default_verifier()`, so the tests install a port
-stack there too (the JAX package's `set_default_verifier`); a full
-`Node` always gets `hasher=`, since the JAX `auto_hasher()` imports jax.
+`ResilientTreeHasher`. The JAX package's `default_verifier()` is a port
+stack meanwhile, so that a JAX call would show up there; none may.
 
 CPU cases: a 4-node core net commits with every verify and tree on the
 port (and none on the JAX package's verifier or hasher); the nemesis
 book's breaker trip, armed and read on the port's fault state, breakers
-and registry; the library's two tier-1 scenarios; one subprocess
-without the conftest (which imports jax) that runs a net of full
-`Node`s and ends with jax never imported; the seams where the host
-plane hands its own objects to the port (a JAX `DispatchQueue` as
-`queue=`, `.then()` chains, `stats()`, `proofs`, `leaf_hashes_async`);
-the table prebuild's exit (a process must not abort while a build
-runs) and `warm_kernels` off the card.
+and registry; the library's two tier-1 scenarios through the port's
+`ScenarioRunner`, its nodes on caches of their own over the port stack
+(its `Nemesis` patched to take the tree hashers only); one
+subprocess without the conftest (which imports jax) that runs a net of
+the port's full `Node`s and ends with neither jax nor the JAX package
+imported; a net of two JAX and two port `NemesisNode`s of one genesis
+that commits equal blocks; the seams where the host plane hands its own
+objects to the port (a JAX `DispatchQueue` as `queue=`, `.then()`
+chains, `stats()`, `proofs`, `leaf_hashes_async`); the table prebuild's
+exit (a process must not abort while a build runs) and `warm_kernels`
+off the card.
 
 `cuda` cases (skipped without a card; on the card machine run with
 `--noconftest`, it has no jax): a 4-node net on card stacks with the
@@ -48,12 +51,9 @@ import numpy as np
 import pytest
 import torch
 
-from tendermint_tpu.consensus.state import ConsensusState
 from tendermint_tpu.services import dispatch as jax_dispatch
 from tendermint_tpu.services import hasher as jax_hasher
 from tendermint_tpu.services import verifier as jax_verifier
-from tendermint_tpu.testing import Nemesis
-from tendermint_tpu.testing import scenario as scenario_mod
 from tendermint_tpu.testing.nemesis import make_genesis
 from tendermint_tpu.types import BlockID
 from tendermint_tpu.types.errors import ValidationError
@@ -61,6 +61,7 @@ from tendermint_tpu.types.part_set import PartSet, PartSetHeader
 from tendermint_tpu.types.vote import VOTE_TYPE_PRECOMMIT, Vote
 from tendermint_tpu.types.vote_set import VoteSet
 from tendermint_tpu.utils import fail as jax_fail
+from tendermint_tpu_torch.consensus.state import ConsensusState
 from tendermint_tpu_torch.services import hasher as port_hasher
 from tendermint_tpu_torch.services import verifier as port_verifier
 from tendermint_tpu_torch.services.batcher import CoalescingVerifier
@@ -68,7 +69,8 @@ from tendermint_tpu_torch.services.resilient import ResilientVerifier
 from tendermint_tpu_torch.telemetry import REGISTRY as PORT_REGISTRY
 from tendermint_tpu_torch.utils import fail as port_fail
 from tendermint_tpu_torch.utils.circuit import CircuitBreaker
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import Nemesis, lockrank_report, time_limit_fixture
+from tendermint_tpu_torch.testing import scenario as scenario_mod
 
 torch.set_num_threads(1)
 
@@ -89,6 +91,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(300))
 
 
 @pytest.fixture(autouse=True)
@@ -133,7 +140,8 @@ class Calls:
 
 class PortBackends:
     """Factories of port stacks, one a node, closed at teardown; the
-    JAX package's default verifier is a port stack meanwhile."""
+    JAX package's default verifier and the port's default stack of the
+    device are port stacks of these meanwhile."""
 
     def __init__(self, monkeypatch, device="cpu", min_device_batch=None):
         self._before = set(threading.enumerate())
@@ -155,6 +163,10 @@ class PortBackends:
             jax_hasher.TreeHasher, "root_from_items", "root_from_hashes", "leaf_hashes", "proofs"
         )
         monkeypatch.setattr(jax_verifier, "_DEFAULT", self.verifier())
+        # the port's process-wide stack of the device is one of these too:
+        # a site that takes no verifier (the scenario's bisection probe)
+        # counts here and is closed with the rest
+        monkeypatch.setitem(port_verifier._DEFAULTS, port_verifier.resolve_device(device), self.verifier())
 
     def table(self):
         return port_verifier.TableBatchVerifier(device=self.device, min_device_batch=self.min_device_batch)
@@ -218,8 +230,8 @@ def _port_did_everything(calls: Calls, drains: bool = False) -> None:
 
 def test_core_net_commits_on_port_backends(port, tmp_path, monkeypatch):
     # runs of 2 same-key votes preverify in one batch (8 by default: a
-    # 4-node net would drain no batch), so the vote drain hands its JAX
-    # DispatchQueue to the port
+    # 4-node net would drain no batch), so the vote drain reaches the
+    # port's coalescer
     monkeypatch.setattr(ConsensusState, "VOTE_DRAIN_MIN", 2)
     waits = PORT_REGISTRY.get("tendermint_batcher_wait_seconds").labels(consumer="consensus")
     waits0 = waits.value["count"]
@@ -247,7 +259,8 @@ def _breaker_reading() -> dict:
 
 
 def test_breaker_trips_mid_height_chain_keeps_committing(port, tmp_path):
-    """`tests/test_nemesis.py`'s acceptance scenario on port backends:
+    """`tests/test_nemesis.py`'s acceptance scenario on the port's
+    `Nemesis` and port backends:
     faults armed on the port's fault state trip every node's breaker
     (read from the port's `ResilientVerifier`s and the port's registry),
     the chain commits on the host fallback without a fork, and the
@@ -294,21 +307,22 @@ def test_breaker_trips_mid_height_chain_keeps_committing(port, tmp_path):
 
 
 class PortScenarioRunner(scenario_mod.ScenarioRunner):
-    """`ScenarioRunner` whose nets take the port's factories
-    (`_build_net` passes none)."""
+    """The port's `ScenarioRunner` on the backends' device: each node
+    verifies on a cache of its own over the device's default stack, the
+    backends' while the fixture runs. Its nets take the backends' tree
+    hashers, which `_build_net` does not pass (nor does the JAX one), so
+    that the part sets go through the port's `TreeHasher` too."""
 
     def __init__(self, home: str, backends: PortBackends) -> None:
-        super().__init__(home=home)
+        super().__init__(home=home, device=backends.device)
         self.backends = backends
 
     def _build_net(self, spec: dict):
-        backends = self.backends
+        hasher = self.backends.hasher
 
         class PortNemesis(Nemesis):
             def __init__(self, *args, **kwargs):
-                super().__init__(
-                    *args, verifier_factory=backends.verifier, hasher_factory=backends.hasher, **kwargs
-                )
+                super().__init__(*args, hasher_factory=hasher, **kwargs)
 
         with mock.patch.object(scenario_mod, "Nemesis", PortNemesis):
             return super()._build_net(spec)
@@ -334,16 +348,62 @@ def test_slow_wan_validator_on_port_backends(port, tmp_path):
     _port_did_everything(port.calls)
 
 
+# -- 2e: one genesis, two packages ------------------------------------------
+
+
+def test_jax_and_port_nemesis_nodes_of_one_genesis_commit_equal_blocks(port, tmp_path):
+    """Two JAX `NemesisNode`s (the JAX host verifier and tree) and two of
+    the port's (port stacks), each pair from its package's `make_genesis`
+    of the same chain, linked pairwise over in-process pipes, each side
+    reading the other's `NodeInfo` from its wire form: all four store the
+    same block hash and app hash at every height of at least four."""
+    from tendermint_tpu.p2p import NodeInfo as JNodeInfo
+    from tendermint_tpu.testing.nemesis import NemesisNode as JNemesisNode
+    from tendermint_tpu_torch.p2p import NodeInfo, pipe_pair
+    from tendermint_tpu_torch.testing.nemesis import NemesisNode
+    from tendermint_tpu_torch.testing.nemesis import make_genesis as port_make_genesis
+
+    chain = "mixed-nemesis"
+    j_gen, j_privs = make_genesis(4, chain_id=chain)
+    gen, privs = port_make_genesis(4, chain_id=chain)
+    assert gen.to_json() == j_gen.to_json()
+    nodes = [JNemesisNode(i, j_gen, j_privs, str(tmp_path), chain, verifier=jax_verifier.HostBatchVerifier(),
+                          hasher=jax_hasher.TreeHasher(backend="host")) for i in (0, 1)]
+    nodes += [NemesisNode(i, gen, privs, str(tmp_path), chain, verifier=port.verifier(), hasher=port.hasher())
+              for i in (2, 3)]
+    for n in nodes:
+        n.start()
+    try:
+        for i in range(4):
+            for j in range(i + 1, 4):
+                ea, eb = pipe_pair()
+                for local, remote, end, outbound in ((i, j, ea, True), (j, i, eb, False)):
+                    cls = JNodeInfo if local < 2 else NodeInfo
+                    info = cls.decode(nodes[remote].switch.node_info.encode())
+                    nodes[local].switch.add_peer_endpoint(info, end, outbound=outbound)
+        deadline = time.monotonic() + 90
+        while min(n.store.height for n in nodes) < 4:
+            assert time.monotonic() < deadline, [n.store.height for n in nodes]
+            time.sleep(0.05)
+    finally:
+        for n in nodes:
+            n.stop()
+    top = min(n.store.height for n in nodes)
+    for h in range(1, top + 1):
+        blocks = [n.store.load_block(h) for n in nodes]
+        assert len({b.hash() for b in blocks}) == 1, f"block hashes differ at height {h}"
+        assert len({b.header.app_hash for b in blocks}) == 1, f"app hashes differ at height {h}"
+
+
 # -- 2d: full nodes in a process without the conftest ------------------------
 
 _FULL_NET = """
 import json, sys, tempfile
-from tendermint_tpu.services import verifier as jax_verifier
-from tendermint_tpu.testing import Nemesis
 from tendermint_tpu_torch.services.batcher import CoalescingVerifier
 from tendermint_tpu_torch.services.hasher import auto_hasher
 from tendermint_tpu_torch.services.resilient import ResilientVerifier
 from tendermint_tpu_torch.services.verifier import TableBatchVerifier
+from tendermint_tpu_torch.testing import Nemesis
 
 warmed = []
 real_warm = TableBatchVerifier.warm_kernels
@@ -357,7 +417,6 @@ def verifier(_i=None):
     stacks.append(CoalescingVerifier(ResilientVerifier(TableBatchVerifier(device="cpu"))))
     return stacks[-1]
 
-jax_verifier.set_default_verifier(verifier())
 with tempfile.TemporaryDirectory() as home:
     with Nemesis(4, home=home, verifier_factory=verifier, hasher_factory=lambda _i: auto_hasher("cpu"),
                  node_factory=Nemesis.full_node_factory()) as net:
@@ -369,7 +428,7 @@ for s in stacks:
     s.close()
 from tendermint_tpu_torch.utils import lockrank
 violations = [lockrank.render_violation(v) for v in lockrank.drain()]
-jax = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+jax = sorted(m for m in sys.modules if m in ("jax", "tendermint_tpu") or m.startswith(("jax.", "tendermint_tpu.")))
 print(json.dumps({"heights": heights, "warmed": warmed, "primary_calls": commits, "jax": jax,
                   "lockrank_violations": violations}))
 """
@@ -384,10 +443,10 @@ def _subprocess_env() -> dict:
 
 
 def test_full_node_net_without_conftest_imports_no_jax():
-    """A net of full `Node`s on port backends, in a process that never
-    loads `tests/conftest.py` (which imports jax): it commits, every node
-    warms its verifier, jax is never imported, and the process exits
-    with code 0."""
+    """A net of the port's full `Node`s on port backends, in a process
+    that never loads `tests/conftest.py` (which imports jax): it commits,
+    every node warms its verifier, neither jax nor the JAX package is
+    ever imported, and the process exits with code 0."""
     out = subprocess.run(
         [sys.executable, "-c", _FULL_NET], cwd=REPO, env=_subprocess_env(),
         capture_output=True, text=True, timeout=180,
@@ -611,7 +670,7 @@ def _report(tag: str, rep: dict) -> None:
     """One JSON line a result, for the run's log (`-s`)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True,
+        capture_output=True, text=True, timeout=30,
     ).stdout.strip()
     print(f"{tag} " + json.dumps({"card": smi, **rep}), flush=True)
 

@@ -63,7 +63,7 @@ from tendermint_tpu_torch.telemetry.gossiplog import (
     classify,
     enabled_from_env,
 )
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import join_all, lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.utils.flowrate import Monitor
 from tendermint_tpu_torch.utils.log import kv, logger, setup_logging
 
@@ -77,6 +77,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def wait_until(pred, timeout=10.0, msg="condition"):
@@ -650,8 +655,7 @@ class TestRollupBounds:
         threads = [threading.Thread(target=pump, args=(f"p{i}",)) for i in range(4)]
         for t in threads:
             t.start()
-        for t in threads:
-            t.join()
+        join_all(threads, 60)
         assert g.snapshot()["channels"]["mempool"]["recv_msgs"] == 2000
 
     def test_snapshot_equals_the_jax_rollup(self):

@@ -37,7 +37,7 @@ from tendermint_tpu_torch.p2p import addrbook as P_addrbook
 from tendermint_tpu_torch.p2p import pex as P_pex
 from tendermint_tpu_torch.p2p import upnp
 from tendermint_tpu_torch.p2p.addrbook import MAX_ATTEMPTS, AddrBook, NetAddress
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 BOOK = {"jax": J_addrbook, "port": P_addrbook}
 PEX = {"jax": J_pex, "port": P_pex}
@@ -52,6 +52,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- tests/test_pex.py ---------------------------------------------------------------

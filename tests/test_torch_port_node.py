@@ -44,7 +44,7 @@ from tendermint_tpu_torch.node import Node
 from tendermint_tpu_torch.p2p.peer import NodeInfo
 from tendermint_tpu_torch.rpc.client import HTTPClient, LocalClient
 from tendermint_tpu_torch.telemetry import REGISTRY
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import first_line, lockrank_report, time_limit_fixture
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -58,6 +58,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(300))
 
 
 def rpc(port, method, timeout=90, **params):
@@ -325,6 +330,11 @@ _NODE_PROCESS = (
 )
 
 
+# a node process's start to its "up" line: `import torch` alone takes
+# seconds on a loaded host
+NODE_UP_S = 120
+
+
 def _node_process(home, *args, log):
     return subprocess.Popen([sys.executable, "-c", _NODE_PROCESS, "node", "--home", str(home), "--device", "cpu",
                              *map(str, args)], cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=log)
@@ -341,6 +351,7 @@ def _stop(proc) -> list:
     return json.loads(lines[0].split(" ", 1)[1].replace("'", '"'))
 
 
+@pytest.mark.slow  # a subprocess crash case, as its JAX twin (tests/test_node.py)
 class TestCrashRecovery:
     def test_kill9_and_restart_resumes_chain(self, tmp_path):
         home = tmp_path / "crash"
@@ -350,7 +361,8 @@ class TestCrashRecovery:
         cfg = Config.test_config(str(home))
         write_config(cfg)  # the test timeouts, read back by `node`
         port = _free_port()
-        errlog = open(tmp_path / "node_stderr.log", "ab")
+        errpath = tmp_path / "node_stderr.log"
+        errlog = open(errpath, "ab")
         node_args = ("--rpc-laddr", f"tcp://127.0.0.1:{port}", "--p2p-laddr", "tcp://127.0.0.1:0",
                      "--fast-sync", "false")
 
@@ -362,28 +374,29 @@ class TestCrashRecovery:
 
         proc = _node_process(home, *node_args, log=errlog)
         try:
-            assert b" up: p2p " in proc.stdout.readline()
+            assert b" up: p2p " in first_line(proc, NODE_UP_S, errpath)
             wait_until(lambda: (height_or_none() or 0) >= 2, timeout=90, msg="first run commits")
             h_before = rpc(port, "status")["sync_info"]["latest_block_height"]
         finally:
             os.kill(proc.pid, signal.SIGKILL)
-            proc.wait()
+            proc.wait(timeout=30)
 
         proc = _node_process(home, *node_args, log=errlog)
         try:
-            assert b" up: p2p " in proc.stdout.readline()
+            assert b" up: p2p " in first_line(proc, NODE_UP_S, errpath)
             wait_until(lambda: (height_or_none() or 0) >= h_before + 2, timeout=90,
                        msg="chain resumes past pre-crash height")
             assert _stop(proc) == []
         finally:
             if proc.poll() is None:
                 proc.kill()
-                proc.wait()
+                proc.wait(timeout=30)
 
 
 # -- tests/test_multiprocess.py TestSubprocessTestnet --------------------------------
 
 
+@pytest.mark.slow  # a multi-process net, as its JAX twin (tests/test_multiprocess.py)
 class TestSubprocessTestnet:
     def test_four_node_processes_commit_a_tx(self, tmp_path):
         """4 `python -m tendermint_tpu_torch node --device cpu` processes
@@ -393,7 +406,8 @@ class TestSubprocessTestnet:
         out_dir = str(tmp_path / "net")
         base = _free_port() | 1
         subprocess.run([sys.executable, "-m", "tendermint_tpu_torch", "testnet", "--n", "4", "--output", out_dir,
-                        "--starting-port", str(base)], cwd=REPO, env=_env(), check=True, capture_output=True)
+                        "--starting-port", str(base)], cwd=REPO, env=_env(), check=True, capture_output=True,
+                       timeout=120)
         rpc_ports = [base + 2 * i + 1 for i in range(4)]
         errlog = open(tmp_path / "nodes_stderr.log", "ab")
         procs = [_node_process(os.path.join(out_dir, f"node{i}"), log=errlog) for i in range(4)]
@@ -430,7 +444,7 @@ class TestSubprocessTestnet:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
-                    p.wait()
+                    p.wait(timeout=30)
 
 
 # -- tests/test_p2p.py TestPersistentAddrMatching ------------------------------------

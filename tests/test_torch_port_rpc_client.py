@@ -17,7 +17,7 @@ from tendermint_tpu_torch.cmd import main as cli_main
 from tendermint_tpu_torch.config import Config
 from tendermint_tpu_torch.node import Node
 from tendermint_tpu_torch.rpc.client import HTTPClient, LocalClient, RPCClientError
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 
 @pytest.fixture(autouse=True)
@@ -29,6 +29,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 @pytest.fixture()

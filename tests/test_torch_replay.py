@@ -35,7 +35,7 @@ from tendermint_tpu_torch.consensus.replay import Handshaker, HandshakeError
 from tendermint_tpu_torch.db.kv import MemDB
 from tendermint_tpu_torch.services.verifier import HostBatchVerifier
 from tendermint_tpu_torch.state import apply_block
-from tendermint_tpu_torch.testing import ChainSim, lockrank_report
+from tendermint_tpu_torch.testing import ChainSim, lockrank_report, time_limit_fixture
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,6 +49,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- tests/test_replay.py -----------------------------------------------------------

@@ -36,7 +36,7 @@ from tendermint_tpu_torch.telemetry import REGISTRY
 from tendermint_tpu_torch.utils import circuit as P_circuit
 from tendermint_tpu_torch.utils import fail
 from tendermint_tpu_torch.utils.circuit import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 from tests.helpers import det_priv_keys
 
@@ -52,6 +52,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 @pytest.fixture(autouse=True)

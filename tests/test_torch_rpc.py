@@ -64,7 +64,7 @@ from tendermint_tpu_torch.rpc.server import RPCError
 from tendermint_tpu_torch.services.verifier import HostBatchVerifier
 from tendermint_tpu_torch.state.state import State
 from tendermint_tpu_torch.state.txindex import KVTxIndexer
-from tendermint_tpu_torch.testing import ReadNode, lockrank_report
+from tendermint_tpu_torch.testing import ReadNode, lockrank_report, time_limit_fixture
 from tendermint_tpu_torch.types import events as ev
 from tendermint_tpu_torch.types.genesis import GenesisDoc
 
@@ -85,6 +85,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def _txs(h):

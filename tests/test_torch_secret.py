@@ -39,7 +39,7 @@ from tendermint_tpu_torch.crypto.keys import PrivKey
 from tendermint_tpu_torch.p2p import secret
 from tendermint_tpu_torch.p2p.secret import HandshakeError, SecretEndpoint
 from tendermint_tpu_torch.p2p.transport import EndpointClosed, pipe_pair
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 h = bytes.fromhex
 
@@ -53,6 +53,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- X25519 (RFC 7748) ------------------------------------------------------------

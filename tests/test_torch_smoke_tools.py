@@ -21,6 +21,11 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
 from tendermint_tpu_torch import abba, profiler_drops  # noqa: E402
+from tendermint_tpu_torch.testing import time_limit_fixture
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def test_sha256_folded_counts_a_run_time_block_as_the_full_compression():

@@ -51,7 +51,7 @@ from tendermint_tpu_torch.services.batcher import CoalescingVerifier
 from tendermint_tpu_torch.state import State, apply_block, load_state, make_genesis_state, validate_block
 from tendermint_tpu_torch.state.state import ABCIResponses
 from tendermint_tpu_torch.state.txindex import KVTxIndexer, NullTxIndexer
-from tendermint_tpu_torch.testing import ChainSim, lockrank_report, make_genesis
+from tendermint_tpu_torch.testing import ChainSim, lockrank_report, make_genesis, time_limit_fixture
 from tendermint_tpu_torch.types.errors import ValidationError
 from tendermint_tpu_torch.types.evidence import decode_evidence
 from tendermint_tpu_torch.types.tx import tx_hash
@@ -74,6 +74,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 def outcome(fn):
@@ -372,10 +377,13 @@ class TestValidatorChanges:
         with pytest.raises(ValidationError):
             sim.state.load_validators(99)
 
-    def test_set_change_prebuilds_the_next_sets_tables(self):
+    def test_set_change_prebuilds_the_next_sets_tables(self, monkeypatch):
         """On the port's stack a set change starts the next set's table
         build (`prebuild`), and the next height's commit, signed by the new
         set, verifies on those tables."""
+        # a stack of this test's own: it sets the minimum batch to 0 and
+        # closes the stack, which the process-wide one must not be left as
+        monkeypatch.setattr(V, "_DEFAULTS", {})
         stack = V.default_verifier(device="cpu")
         try:
             stack.inner.primary._min_batch = 0
@@ -449,12 +457,12 @@ class TestFailPoints:
         # 4 fail points in apply_block: indices 0..3 must die, 4 survives
         for idx in range(4):
             env["FAIL_TEST_INDEX"] = str(idx)
-            p = subprocess.run([sys.executable, str(script)], env=env, capture_output=True, text=True)
+            p = subprocess.run([sys.executable, str(script)], env=env, capture_output=True, text=True, timeout=120)
             assert p.returncode == 1, (idx, p.stdout, p.stderr)
             assert "SURVIVED" not in p.stdout
             assert f"FAIL_TEST_INDEX={idx}: exiting at fail point" in p.stderr
         env["FAIL_TEST_INDEX"] = "4"
-        p = subprocess.run([sys.executable, str(script)], env=env, capture_output=True, text=True)
+        p = subprocess.run([sys.executable, str(script)], env=env, capture_output=True, text=True, timeout=120)
         assert p.returncode == 0 and "SURVIVED" in p.stdout, p.stderr
 
     def test_soft_fail_raises_simulated_crash_at_each_point(self, monkeypatch):

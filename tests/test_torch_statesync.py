@@ -74,6 +74,7 @@ from tendermint_tpu_torch.testing import (
     make_genesis,
     make_validators,
     snapshot_server,
+    time_limit_fixture,
 )
 from tendermint_tpu_torch.types.errors import ValidationError
 from tendermint_tpu_torch.types.genesis import GenesisDoc
@@ -97,6 +98,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 @pytest.fixture(autouse=True)
@@ -235,20 +241,20 @@ class TestChunkVerifyAsyncGate:
     def test_clean_set_resolves_true_at_join(self):
         m, chunks = self._take()
         gate = verify_chunks_async(m, chunks, HOST_HASHER)
-        assert gate.result() is True
+        assert gate.result(60) is True
 
     def test_corrupt_chunk_raises_at_join_not_submit(self):
         m, chunks = self._take()
         chunks[1] = bytes(b ^ 0xFF for b in chunks[1])
         gate = verify_chunks_async(m, chunks, HOST_HASHER)  # must not raise
         with pytest.raises(ValidationError, match="chunk 1"):
-            gate.result()
+            gate.result(60)
 
     def test_wrong_count_is_an_error_handle(self):
         m, chunks = self._take()
         gate = verify_chunks_async(m, chunks[:-1], HOST_HASHER)
         with pytest.raises(ValidationError, match="chunks"):
-            gate.result()
+            gate.result(60)
 
     def test_routes_through_the_hashers_async_seam(self):
         from tendermint_tpu_torch.services.dispatch import DispatchQueue
@@ -266,7 +272,7 @@ class TestChunkVerifyAsyncGate:
         m, chunks = self._take()
         q = DispatchQueue(depth=2, name="test-chunk-gate")
         try:
-            assert verify_chunks_async(m, chunks, hasher, queue=q).result() is True
+            assert verify_chunks_async(m, chunks, hasher, queue=q).result(60) is True
         finally:
             q.close()
         assert hasher.async_calls == 1
@@ -286,7 +292,7 @@ class TestChunkVerifyAsyncGate:
         q = DispatchQueue(depth=2, name="test-chunk-gate-fault")
         try:
             # a faulted launch re-hashes on the host inside the handle
-            assert verify_chunks_async(m, chunks, rh, queue=q).result() is True
+            assert verify_chunks_async(m, chunks, rh, queue=q).result(60) is True
         finally:
             q.close()
         assert rh.breaker.state == OPEN
@@ -294,7 +300,7 @@ class TestChunkVerifyAsyncGate:
         q2 = DispatchQueue(depth=2, name="test-chunk-gate-fault2")
         try:
             with pytest.raises(ValidationError, match="chunk 0"):
-                verify_chunks_async(m, chunks, rh, queue=q2).result()
+                verify_chunks_async(m, chunks, rh, queue=q2).result(60)
         finally:
             q2.close()
 

@@ -29,7 +29,7 @@ from tendermint_tpu.telemetry import tracectx as J_tracectx
 from tendermint_tpu_torch.telemetry import flightrec, heightlog, launchlog, metrics, registry, tracectx
 from tendermint_tpu_torch.telemetry.spanlog import SpanLog, persist_spans
 from tendermint_tpu_torch.telemetry.tracer import Tracer
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import first_line, lockrank_report, time_limit_fixture
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -43,6 +43,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- the registry ---------------------------------------------------------------
@@ -294,7 +299,7 @@ def test_sigusr2_dumps_a_live_process(tmp_path):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     try:
-        assert proc.stdout.readline().strip() == "armed"
+        assert first_line(proc, 60).strip() == "armed"
         proc.send_signal(signal.SIGUSR2)
         out, err = proc.communicate(timeout=60)
     finally:

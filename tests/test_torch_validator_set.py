@@ -28,7 +28,7 @@ from tendermint_tpu.types.part_set import PartSetHeader
 from tendermint_tpu.types.vote import VOTE_TYPE_PRECOMMIT, Vote
 from tendermint_tpu.types.vote_set import VoteSet
 from tendermint_tpu_torch.services import verifier as V
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 torch.set_num_threads(1)
 
@@ -44,6 +44,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +114,7 @@ def test_verify_commit_batched_matches_the_jax_host(chain, stack, which):
     assert (want is None) == (which == "good")
     assert calls["async"] == 1  # the tagged stack takes the async branch
     got_async = _outcome(
-        lambda: valset.verify_commit_batched_async(CHAIN, entries, verifier=v, consumer="statesync").result()
+        lambda: valset.verify_commit_batched_async(CHAIN, entries, verifier=v, consumer="statesync").result(60)
     )
     assert got_async == want and calls["async"] == 2
     snap = v.snapshot()

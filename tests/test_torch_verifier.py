@@ -20,7 +20,7 @@ from tendermint_tpu_torch.ops import ed25519_kernel as T
 from tendermint_tpu_torch.ops import ed25519_ladder as TL
 from tendermint_tpu_torch.ops import ed25519_tables as TT
 from tendermint_tpu_torch.services import verifier as V
-from tendermint_tpu_torch.testing import lockrank_report
+from tendermint_tpu_torch.testing import lockrank_report, time_limit_fixture
 
 # one intra-op thread: the suite runs several test processes side by side
 torch.set_num_threads(1)
@@ -35,6 +35,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 ZERO_KEY = b"\x00" * 32  # small order: y = 0 is a point of order 4
 

@@ -45,6 +45,7 @@ from tendermint_tpu_torch.testing import det_priv_keys, lockrank_report, make_bl
 from tendermint_tpu_torch.testing import make_commit as _make_commit
 from tendermint_tpu_torch.types import evidence as P_evidence
 from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence, decode_evidence, verify_evidence_batch
+from tendermint_tpu_torch.testing import time_limit_fixture
 
 torch.set_num_threads(1)
 
@@ -72,6 +73,11 @@ def _port_lockrank_guard():
     report = lockrank_report()
     if report:
         pytest.fail("the port's lock-rank sanitizer recorded violation(s):\n" + report, pytrace=False)
+
+
+# each test fails past this many seconds, with every thread's stack on
+# stderr, where a wait that never ends would hold its worker for good
+_time_limit = pytest.fixture(autouse=True)(time_limit_fixture(180))
 
 
 # -- the bridge: JAX objects into the port by their wire form ---------------
@@ -644,7 +650,7 @@ def _run(api, vs, entry, height, head, verifier):
         return lambda: vs.verify_commit_batched(CHAIN_ID, [(hbid, hh, hcommit), (bid, height, commit)], verifier=verifier)
     if api == "batched_async":
         return lambda: vs.verify_commit_batched_async(
-            CHAIN_ID, [(hbid, hh, hcommit), (bid, height, commit)], verifier=verifier, consumer="fastsync").result()
+            CHAIN_ID, [(hbid, hh, hcommit), (bid, height, commit)], verifier=verifier, consumer="fastsync").result(60)
     return lambda: vs.verify_commit_any(vs, CHAIN_ID, bid, height, commit, verifier=verifier, consumer="light")
 
 
