@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's ed25519 verify path and Merkle hash
 plane once on the card.
 
-    python3 chip_smoke.py            # one CUDA card, about 10-11 minutes
+    python3 chip_smoke.py            # one CUDA card, about 11-13 minutes
 
 Phases (inputs made from --seed with numpy, signed with the port's
 pure-Python RFC 8032 module, more than 512 signatures at once in a
@@ -235,8 +235,38 @@ as a canonical vote's sign bytes):
    process's launch ledger must account for the net's launches kernel by
    kernel (the nodes share the process and its ledger); a record with an
    error, a host fallback or primary failure, or a module of jax in the
-   process fails. Then the stack is closed. `--testing-only` runs phase 0
-   and this phase alone;
+   process fails. `--testing-only` runs phase 0 and this phase alone;
+15. tools, run after phase 14 on the same stack: the port's operator
+   tools (`tendermint_tpu_torch.tools`), each through its own `main`.
+   (a) `loadgen` in this process on `default_verifier()` at the minimum
+   device batch 0: 2,000 signed tx/s offered for 3 s from 16 threads over
+   64 signers into its in-process mempool, every arrival resolved `ok`,
+   `ladder` and the finish launched and the launch ledger settled against
+   the wrappers' counts (offered and achieved tx/s, late arrivals,
+   admission p50/p99); then `python -m tendermint_tpu_torch.tools.loadgen
+   --device cuda` (signed, 500 tx/s for 2 s, minimum batch 0) and
+   `statesync_demo --device cuda` at its defaults as child processes,
+   each to exit 0 (the demo's restore at parity) having launched on the
+   card (the loadgen) and imported no module of jax. (b) four `node` processes from `testnet --n
+   4` on the card at the default `Config`, with
+   TENDERMINT_TPU_MIN_DEVICE_BATCH=0 and TENDERMINT_TPU_PROFILE_HZ=29,
+   once every node's kernel warm-up has ended:
+   `loadgen --rpc` at node 0 (signed, 200 tx/s for 5 s; the heights/s
+   under the load), then `loadgen --reads --rpc` over all four (walks
+   verified on the card in this process); then every report:
+   `device_report` over each home's `launches.jsonl` (its per-kind rollup
+   the ledger's `summarize()`) and over each node's RPC (the same records'
+   rollup) and the fleet's, `finality_report` over the four
+   `heights.jsonl` (every height every node committed), `trace_timeline
+   --trace` over the four `spans.jsonl` (a tx broadcast at node 0 from its
+   admission to its commit, on more than one node), `gossip_report` over
+   the four RPCs and `contention_report` over each (each names its top
+   source). Every node's blocks, block hashes, commits and app hashes
+   must be equal, and each process's launches (the counts hook)
+   accounted for by its ledger, as in phase 13; a record with an error, a
+   host fallback or primary failure, or a module of jax in any process
+   fails. Then the stack is closed. `--tools-only` runs phase 0 and this
+   phase alone;
 7. mesh: the same work over four shards (`cuda:0..3` with four cards,
    else `cuda:0` four times: the times then measure the choreography,
    not a speed-up): the 10k commit through `ShardedTableBatchVerifier`
@@ -4058,11 +4088,17 @@ TIMED = {
 MARKS = ("warm_first_use_s",)
 COUNTS_HOOK = '''"""Written by chip_smoke.py for the node processes it starts."""
 import atexit
+import faulthandler
 import importlib.util
 import json
 import os
+import signal
 import sys
 import time
+
+# SIGUSR1 writes every thread's stack to stderr (the process's log under
+# chiprun_out/nodes/): send it to a node that stops answering
+faulthandler.register(signal.SIGUSR1, all_threads=True)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 for _dir in sys.path:
@@ -4123,8 +4159,11 @@ def _dump():
     for name, (mod, attr) in WRAPPERS.items():
         m = sys.modules.get(mod)
         counts[name] = int(getattr(m, attr).launches) if m is not None else 0
+    # modules of jax or of the JAX package the process imported (none)
+    foreign = sorted(m for m in sys.modules if m in ("jax", "tendermint_tpu")
+                     or m.startswith(("jax.", "tendermint_tpu.")))
     with open(os.environ[%(env)r], "w") as f:
-        json.dump({"counts": counts, "seconds": _SECONDS}, f)
+        json.dump({"counts": counts, "seconds": _SECONDS, "foreign": foreign}, f)
 
 
 if os.environ.get(%(env)r):
@@ -4275,6 +4314,8 @@ class NodeProcess:
         with open(self.counts_path) as f:
             out = json.load(f)
         self.seconds = out["seconds"]
+        if out["foreign"]:
+            raise AssertionError(f"node: {self.name} imported {out['foreign'][:5]}")
         return out["counts"]
 
     def warm_after_up(self) -> float | None:
@@ -4901,6 +4942,345 @@ def run_testing(stack, sync) -> dict:
     return rep
 
 
+TOOLS_NODES = 4
+TOOLS_CHAIN = "chip-smoke-tools"
+TOOLS_MIN_BATCH = 0  # the table backend's minimum device batch, as in phase 14
+# (a) the in-process load generator: signed envelopes at 2,000 tx/s
+TOOLS_LOADGEN = ("--signed", "--signers", "64", "--threads", "16", "--duration", "3", "--rate", "2000")
+# the same tool as a child process on the card, signed and at the minimum
+# device batch 0 so that it launches
+TOOLS_CHILD_LOADGEN = ("--device", "cuda", "--signed", "--rate", "500", "--duration", "2")
+# (b) the testnet's load: signed writes at node 0, then reads over all four
+TOOLS_WRITES = ("--signed", "--rate", "200", "--duration", "5")
+TOOLS_READS = ("--reads", "--walk-prob", "0.1", "--rate", "50", "--duration", "3")
+TOOLS_NET_ENV = {"TENDERMINT_TPU_MIN_DEVICE_BATCH": "0", "TENDERMINT_TPU_PROFILE_HZ": "29"}
+TOOLS_COMMIT_HEIGHTS = 2  # heights every node commits past the load, so that its txs are in blocks
+TOOLS_RPC_LAUNCHES = 1 << 20  # `--launches`: every record a node's ring holds (1,024)
+# a report's fetch of a loaded node's `dump_telemetry` view: the phase calls
+# the tools' fetch functions with this limit (theirs is 30 s) and records
+# each fetch's seconds, so that a slow view shows as a number
+TOOLS_RPC_TIMEOUT_S = 120.0
+TOOLS_TIMEOUT_S = 180.0
+TOOLS_LOGS = "tools"  # OUT/tools/: the child tools' output
+
+
+def tool_main(main, argv) -> tuple[int, str]:
+    """A tool's `main(argv)` in this process: its exit code and stdout."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    return rc, buf.getvalue()
+
+
+def loadgen_summary(what: str, rc: int, text: str, reads: bool = False) -> dict:
+    """The load generator's JSON line: every arrival resolved, every
+    write admitted (`ok`), no read an error."""
+    lines = [line for line in text.splitlines() if line.startswith("{")]
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"tools {what}: loadgen exited {rc} with {text[-2000:]}")
+    out = json.loads(lines[0])
+    bad = "error" in out["outcomes"] if reads else set(out["outcomes"]) != {"ok"}
+    if out["resolved"] != out["submitted"] or bad:
+        raise AssertionError(f"tools {what}: {out}")
+    return out
+
+
+def tool_child(name: str, args, hook_dir, env=None) -> tuple:
+    """`python -m tendermint_tpu_torch.tools.<name> <args>` started on the
+    counts hook's path (its kernel launches and any module of jax it
+    imported are read at its exit), with `env` added to its environment."""
+    # absolute: the child runs in the checkout, this process where it was started
+    counts_path = str((OUT / TOOLS_LOGS / f"{name}.counts.json").resolve())
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join([str(hook_dir), str(REPO)]))
+    env[NODE_COUNTS_ENV] = counts_path
+    (OUT / TOOLS_LOGS).mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([sys.executable, "-m", f"tendermint_tpu_torch.tools.{name}", *args], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return name, proc, counts_path, time.perf_counter()
+
+
+def join_child(child, timeout: float) -> tuple[str, dict]:
+    """The child tool's stdout and launch counts, once it exited 0 having
+    imported nothing of jax."""
+    name, proc, counts_path, t0 = child
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate(timeout=NODE_STOP_TIMEOUT_S)
+        raise AssertionError(f"tools: {name} did not end in {timeout} s")
+    (OUT / TOOLS_LOGS / f"{name}.out").write_text(out)
+    (OUT / TOOLS_LOGS / f"{name}.err").write_text(err)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: {name} exited {proc.returncode}: {err[-2000:]}")
+    with open(counts_path) as f:
+        hook = json.load(f)
+    if hook["foreign"]:
+        raise AssertionError(f"tools: {name} imported {hook['foreign'][:5]}")
+    return out, {"s": time.perf_counter() - t0, "launches": hook["counts"]}
+
+
+def record_key(r: dict) -> tuple:
+    """`device_report`'s key of a launch record."""
+    return (r.get("t"), r.get("kind"), r.get("rows"), r.get("queue"))
+
+
+def tools_device_reports(homes, rpc_records: dict, tmp) -> dict:
+    """`device_report` over each home's `launches.jsonl` and over what the
+    node's RPC served: each file's per-kind rollup is the ledger's
+    `summarize()`, the RPC's is the file's over the same records, and the
+    fleet's totals are the nodes' sum."""
+    from tendermint_tpu_torch.telemetry.launchlog import summarize
+    from tendermint_tpu_torch.tools import device_report
+
+    out: dict = {}
+    paths = [str(pathlib.Path(home, "data", LEDGER_FILE)) for home in homes]
+    for i, path in enumerate(paths):
+        js = pathlib.Path(tmp, f"device_report{i}.json")
+        rc, text = tool_main(device_report.main, ["--ledgers", path, "--json", str(js)])
+        report = json.loads(js.read_text())
+        recs = node_ledger(homes[i])
+        if rc != 0 or report["kinds"] != json.loads(json.dumps(summarize(recs))) or report["launches"] != len(recs):
+            raise AssertionError(f"tools device_report: node {i}'s report {report['kinds']} is not its ledger's "
+                                 f"summarize() of {len(recs)} records")
+        served = {record_key(r) for r in rpc_records[i]}
+        same = [r for r in recs if record_key(r) in served]
+        rpc = device_report.build_report(rpc_records[i])
+        if len(same) != len(served) or rpc["kinds"] != device_report.build_report(same)["kinds"]:
+            raise AssertionError(f"tools device_report: node {i}'s RPC served records its ledger file does not "
+                                 f"hold, or they roll up differently")
+        out[f"node{i}"] = {"launches": report["launches"], "rpc_launches": rpc["launches"],
+                           "verdict": report["verdict"]["top_waste_source"] if report["verdict"] else None,
+                           "kinds": {k: agg["launches"] for k, agg in report["kinds"].items()}}
+    rc, text = tool_main(device_report.main, ["--ledgers", *paths])
+    if rc != 0 or "verdict: top waste source is" not in text:
+        raise AssertionError(f"tools device_report: the fleet's report names no waste source: {text[-2000:]}")
+    (OUT / TOOLS_LOGS / "device_report.txt").write_text(text)
+    out["fleet_text_lines"] = len(text.splitlines())
+    return out
+
+
+def tools_finality(homes, tops) -> dict:
+    """`finality_report` over the four `heights.jsonl`: each node's record
+    of every height it committed (`tops`: each node's height before it
+    stopped), and every node's row at each height all of them reached."""
+    from tendermint_tpu_torch.tools import finality_report
+
+    paths = [str(pathlib.Path(home, "data", "heights.jsonl")) for home in homes]
+    for i, path in enumerate(paths):
+        hs = {r["height"] for r in finality_report.load_records([path])}
+        if not hs or hs != set(range(1, max(hs) + 1)) or max(hs) < tops[i]:
+            raise AssertionError(f"tools finality_report: node {i}'s ledger holds heights {sorted(hs)}, "
+                                 f"it committed 1-{tops[i]}")
+    rc, text = tool_main(finality_report.main, ["--ledgers", *paths, "--json"])
+    report = json.loads(text)
+    short = [h for h in range(1, min(tops) + 1) if len(report["heights"].get(str(h), ())) != len(homes)]
+    if rc != 0 or short:
+        raise AssertionError(f"tools finality_report: heights {short} lack a node's row")
+    rc, text = tool_main(finality_report.main, ["--ledgers", *paths])
+    (OUT / TOOLS_LOGS / "finality_report.txt").write_text(text)
+    return {"heights": len(report["heights"]), **report["summary"]}
+
+
+def tools_trace(homes) -> dict:
+    """`trace_timeline --trace` over the nodes' `spans.jsonl`: a tx
+    broadcast at node 0, from its admission there to its commit, on more
+    than one node."""
+    from tendermint_tpu_torch.tools import trace_timeline
+
+    spans = [str(pathlib.Path(home, "data", SPANS_FILE)) for home in homes]
+    loaded = trace_timeline.load_spans(spans)
+    admitted = {s["attrs"]["trace"] for s in loaded if s["name"] == "mempool.admission" and "trace" in s["attrs"]}
+    committed = {s["attrs"]["trace"] for s in loaded if s["name"] == "tx.e2e" and "trace" in s["attrs"]}
+    for trace in sorted(admitted & committed):
+        rc, text = tool_main(trace_timeline.main, ["--spans", *spans, "--trace", trace, "--json"])
+        tl = json.loads(text)
+        if rc == 0 and {"admission", "commit"} <= set(tl["stages"]) and len(tl["nodes"]) >= 2:
+            rc, text = tool_main(trace_timeline.main, ["--spans", *spans, "--trace", trace])
+            (OUT / TOOLS_LOGS / "trace_timeline.txt").write_text(text)
+            entries = tl["entries"]
+            return {"trace": trace, "traced_txs_committed": len(admitted & committed), "stages": tl["stages"],
+                    "nodes": len(tl["nodes"]), "spans": tl["span_count"],
+                    "ingress_to_commit_s": max(e["end"] for e in entries) - min(e["t"] for e in entries)}
+    raise AssertionError(f"tools trace_timeline: no traced tx ({len(admitted)} admitted, {len(committed)} "
+                         f"committed) runs from its admission to its commit across the nodes")
+
+
+def run_tools_net(out_dir, base: int, hook_dir, warm: dict) -> dict:
+    """Phase 15 (b): four `node` processes from `testnet --n 4` on the
+    card, loaded by the port's load generator over RPC and read by every
+    report (see the module's docstring)."""
+    from tendermint_tpu_torch.tools import contention_report, device_report, gossip_report, loadgen
+
+    homes = [out_dir / f"node{i}" for i in range(TOOLS_NODES)]
+    nodes = [NodeProcess(f"tools_node{i}", homes[i], hook_dir, env=TOOLS_NET_ENV) for i in range(TOOLS_NODES)]
+    ports = [base + 2 * i + 1 for i in range(TOOLS_NODES)]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    clients = [node_client(p) for p in ports]
+    rep: dict = {"nodes": TOOLS_NODES}
+    tmp = out_dir / "reports"  # the reports' --json files
+    tmp.mkdir()
+    try:
+        for nd in nodes:
+            nd.start()
+        rep["up_s"] = [nd.wait_up() for nd in nodes]
+        # the load meets warm nodes: each node's kernels' warm-up has ended
+        # (a node on the card warms up; one on the CPU does not)
+        if any(warm.values()):
+            wait_nodes(nodes, lambda: all(os.path.exists(nd.warm_mark) for nd in nodes), "every node's warm-up",
+                       TOOLS_TIMEOUT_S)
+        rep["warm_s"] = time.perf_counter() - min(nd.started_at for nd in nodes)
+        wait_nodes(nodes, lambda: min(node_heights(clients)) >= 1, "a first height on every node", TOOLS_TIMEOUT_S)
+        h0, t0 = node_heights(clients), time.perf_counter()
+        rep["writes"] = loadgen_summary("writes", *tool_main(loadgen.main, ["--rpc", addrs[0], *TOOLS_WRITES]))
+        secs = time.perf_counter() - t0
+        h1 = node_heights(clients)
+        rep["load_heights_per_s"] = (min(h1) - min(h0)) / secs
+        rep["load_s"], rep["load_heights"] = secs, (h0, h1)
+        led = StepLedger("tools", "reads")
+        rep["reads"] = loadgen_summary("reads", *tool_main(loadgen.main, ["--rpc", ",".join(addrs), *TOOLS_READS]),
+                                       reads=True)
+        if not rep["reads"]["outcomes"].get("walk"):
+            raise AssertionError(f"tools reads: no walk ran: {rep['reads']}")
+        rep["reads_launches"] = led.settle()
+        led.close()
+        target = max(h1) + TOOLS_COMMIT_HEIGHTS
+        wait_nodes(nodes, lambda: min(node_heights(clients)) >= target, f"height {target} on every node",
+                   TOOLS_TIMEOUT_S)
+        # the reports that read the nodes' RPC, through each tool's own
+        # fetch, build and render functions (its `main --rpc`, with a
+        # longer limit on the fetch)
+        views, rep["rpc_fetch_s"] = [], {"gossip": [], "profile": [], "launches": []}
+        for addr in addrs:
+            t1 = time.perf_counter()
+            views.append(gossip_report.fetch_gossip_rpc(addr, timeout=TOOLS_RPC_TIMEOUT_S))
+            rep["rpc_fetch_s"]["gossip"].append(time.perf_counter() - t1)
+        gossip = gossip_report.build_report(views)
+        if gossip["nodes"] != TOOLS_NODES or not gossip["verdict"]:
+            raise AssertionError(f"tools gossip_report: {gossip_report.render_text(gossip)}")
+        (OUT / TOOLS_LOGS / "gossip_report.txt").write_text(gossip_report.render_text(gossip))
+        rep["gossip"] = {"top_waste_source": gossip["verdict"]["top_waste_source"],
+                         "cost_bytes": gossip["verdict"]["cost_bytes"], "total_bytes": gossip["total_bytes"]}
+        rep["contention"] = []
+        for i, addr in enumerate(addrs):
+            t1 = time.perf_counter()
+            profile = contention_report._profile_of(
+                contention_report.fetch_profile_rpc(addr, timeout=TOOLS_RPC_TIMEOUT_S))
+            rep["rpc_fetch_s"]["profile"].append(time.perf_counter() - t1)
+            cont = contention_report.build_report(profile)
+            text = contention_report.render_text(cont)
+            # its top source: the verdict's subsystem where a thread was
+            # sampled on the CPU, else the dominant blocked subsystem
+            top = (cont["verdict"] or {}).get("move_out_first") or (cont["dominant_blocked_subsystem"] or {}).get(
+                "subsystem")
+            if not cont["samples"] or not top:
+                raise AssertionError(f"tools contention_report: node {i}: {text[-2000:]}")
+            (OUT / TOOLS_LOGS / f"contention_report{i}.txt").write_text(text)
+            rep["contention"].append({
+                "samples": cont["samples"], "on_cpu": sum(r["on_cpu"] for r in cont["waterfall"]),
+                "move_out_first": (cont["verdict"] or {}).get("move_out_first"),
+                "dominant_blocked": (cont["dominant_blocked_subsystem"] or {}).get("subsystem"),
+                "most_contended_lock": (cont["most_contended_lock"] or {}).get("lock")})
+        rpc_records = {}
+        for i, addr in enumerate(addrs):
+            t1 = time.perf_counter()
+            rpc_records[i] = device_report.fetch_launches_rpc(addr, n=TOOLS_RPC_LAUNCHES, timeout=TOOLS_RPC_TIMEOUT_S)
+            rep["rpc_fetch_s"]["launches"].append(time.perf_counter() - t1)
+        top = min(node_heights(clients))
+        same_chain("tools", clients, top)
+        rep["app_hashes"] = same_app_hash("tools", clients)
+        rep["health"] = [node_device_health(nd.name, c) for nd, c in zip(nodes, clients)]
+        tops = node_heights(clients)
+        got = stop_all(nodes, warm)
+    finally:
+        for nd in nodes:
+            nd.reap()
+    rep["committed"] = tops
+    rep["launches_by_node"] = {nd.name: node_account(nd.name, got[nd.name], warm, node_ledger(nd.home), TOOLS_NODES)
+                               for nd in nodes}
+    rep["device_report"] = tools_device_reports(homes, rpc_records, tmp)
+    rep["finality"] = tools_finality(homes, tops)
+    rep["trace"] = tools_trace(homes)
+    rep["launches_total"] = {k: sum(c[k] for c in rep["launches_by_node"].values()) for k in WRAPPERS}
+    if any(c["ladder"] == 0 or c["madd_chain_entries"] == 0 for c in rep["launches_by_node"].values()):
+        raise AssertionError(f"tools net: at minimum batch 0 every node launches `ladder` and the entries chain: "
+                             f"{rep['launches_by_node']}")
+    log({"phase": "tools_net", **{k: v for k, v in rep.items() if k not in ("app_hashes",)}})
+    return rep
+
+
+def run_tools(stack, sync) -> dict:
+    """Phase 15: the port's operator tools on the card (see the module's
+    docstring). Launches: the in-process load generator's and walks', the
+    node processes' and the child tools'."""
+    import tempfile
+
+    from tendermint_tpu_torch.tools import loadgen
+
+    backend = stack.inner.primary
+    dev = backend.device
+    min_batch = backend._min_batch
+    health = StackHealth(stack.inner)
+    rep: dict = {}
+    t_phase = time.perf_counter()
+    warm = warm_launches(dev)
+    backend._min_batch = TOOLS_MIN_BATCH
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+            hook_dir = pathlib.Path(tmp, "hook")
+            hook_dir.mkdir()
+            write_counts_hook(hook_dir)
+            # (a) the load generator in this process, on default_verifier()
+            led = StepLedger("tools", "loadgen")
+            t0 = time.perf_counter()
+            lg = loadgen_summary("loadgen", *tool_main(loadgen.main, TOOLS_LOADGEN))
+            sync()
+            lg["s"] = time.perf_counter() - t0
+            lg["launches"] = led.settle()
+            led.close()
+            _launched(lg["launches"], ("ladder", "finish_encode_compare"), "loadgen", phase="tools")
+            rep["loadgen"] = lg
+            log({"phase": "tools_loadgen", **lg})
+            # the homes of (b), while the child tools start on the card
+            out_dir, base = pathlib.Path(tmp, "net"), free_port_base(2 * TOOLS_NODES)
+            children = [tool_child("loadgen", TOOLS_CHILD_LOADGEN, hook_dir,
+                                   env={"TENDERMINT_TPU_MIN_DEVICE_BATCH": str(TOOLS_MIN_BATCH)}),
+                        tool_child("statesync_demo", ("--device", "cuda"), hook_dir)]
+            try:
+                port_cli(("testnet", "--n", TOOLS_NODES, "--output", out_dir, "--starting-port", base,
+                          "--chain-id", TOOLS_CHAIN))
+                (lg_out, lg_child), (sd_out, sd_child) = (join_child(c, TOOLS_TIMEOUT_S) for c in children)
+            finally:
+                for _name, proc, _path, _t in children:
+                    if proc.poll() is None:
+                        proc.kill()
+            lg_child.update(loadgen_summary("loadgen child", 0, lg_out))
+            _launched(lg_child["launches"], ("ladder", "finish_encode_compare"), "loadgen child", phase="tools")
+            sd = json.loads(sd_out[sd_out.index("{"):])
+            if "RESTORE FAILED" in sd_out or sd["restores_ok"] < 1 or sd["synced_height"] <= sd["snapshot_height"]:
+                raise AssertionError(f"tools statesync_demo: {sd_out[-2000:]}")
+            sd_child.update(sd)
+            rep["children"] = {"loadgen": lg_child, "statesync_demo": sd_child}
+            log({"phase": "tools_children", **rep["children"]})
+            # (b) a port testnet under the tools
+            rep["net"] = run_tools_net(out_dir, base, hook_dir, warm)
+    finally:
+        backend._min_batch = min_batch
+    health.check("tools")
+    jax = sorted(m for m in sys.modules if m in ("jax", "tendermint_tpu") or m.startswith(("jax.", "tendermint_tpu.")))
+    if jax:
+        raise AssertionError(f"tools: the process imported {jax[:5]}")
+    steps = [rep["loadgen"]["launches"], rep["net"]["reads_launches"], rep["net"]["launches_total"],
+             *(c["launches"] for c in rep["children"].values())]
+    rep["launches"] = {k: sum(c[k] for c in steps) for k in WRAPPERS}
+    rep["s"] = time.perf_counter() - t_phase
+    log({"phase": "tools", "s": rep["s"], "launches": rep["launches"]})
+    return rep
+
+
 MESH_SHARDS = 4
 MESH_REPS = 3  # timed calls a step, median
 MESH_REPROBE_S = 0.2
@@ -5488,6 +5868,24 @@ def run_testing_only(args) -> dict:
     return report
 
 
+def run_tools_only(args) -> dict:
+    """`--tools-only`: phase 0, then phase 15 alone on `default_verifier()`."""
+    import torch
+
+    from tendermint_tpu_torch.services.dispatch import default_dispatch_queue
+    from tendermint_tpu_torch.services.verifier import default_verifier
+
+    report: dict = {"args": vars(args), "env": environment()}
+    stack = default_verifier()
+    check_layers(stack)
+    try:
+        report["tools"] = run_tools(stack, torch.cuda.synchronize)
+    finally:
+        stack.close()
+        default_dispatch_queue().close()
+    return report
+
+
 def run(args) -> dict:
     import torch
 
@@ -5681,6 +6079,12 @@ def run(args) -> dict:
     report["testing"] = run_testing(stack, sync)
     for name, v in report["testing"]["launches"].items():
         launches[name] = launches.get(name, 0) + v
+
+    # -- phase 15: the port's operator tools, in process and on a testnet --
+    phase_clock.mark("15")
+    report["tools"] = run_tools(stack, sync)
+    for name, v in report["tools"]["launches"].items():
+        launches[name] = launches.get(name, 0) + v
     stack.close()
     default_dispatch_queue().close()
 
@@ -5860,6 +6264,7 @@ def main() -> int:
     ap.add_argument("--readpath-only", action="store_true", help="phase 0 and the read-path phase alone")
     ap.add_argument("--node-only", action="store_true", help="phase 0 and the node phase alone")
     ap.add_argument("--testing-only", action="store_true", help="phase 0 and the testing phase alone")
+    ap.add_argument("--tools-only", action="store_true", help="phase 0 and the tools phase alone")
     args = ap.parse_args()
 
     import torch
@@ -5886,6 +6291,8 @@ def main() -> int:
             report = run_node_only(args)
         elif args.testing_only:
             report = run_testing_only(args)
+        elif args.tools_only:
+            report = run_tools_only(args)
         else:
             report = run(args)
         report["metrics"] = dump_metrics()

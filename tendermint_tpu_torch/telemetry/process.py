@@ -28,6 +28,7 @@ import gc
 import os
 import threading
 import time
+from collections import deque
 
 _PAGE_SIZE = 4096
 try:
@@ -69,6 +70,8 @@ def thread_count() -> float:
 _installed = False
 _install_lock = threading.Lock()
 _gc_started_at: float | None = None
+# (generation, pause seconds or None) of collections not yet recorded
+_gc_pending: deque = deque()
 
 
 def _gc_callback(phase: str, info: dict) -> None:
@@ -80,9 +83,19 @@ def _gc_callback(phase: str, info: dict) -> None:
     _gc_started_at = None
     from tendermint_tpu_torch.telemetry import metrics as _m
 
-    _m.PROCESS_GC_COLLECTIONS.labels(gen=str(info.get("generation", "?"))).inc()
-    if started is not None:
-        _m.PROCESS_GC_PAUSE.observe(time.perf_counter() - started)
+    _gc_pending.append(
+        (str(info.get("generation", "?")), None if started is None else time.perf_counter() - started)
+    )
+    # a collection starts on whatever thread allocates, maybe one inside a
+    # read of these very families with their lock held, which it would
+    # wait for forever: such a collection is recorded with the next one
+    if _m.PROCESS_GC_COLLECTIONS.held_here() or _m.PROCESS_GC_PAUSE.held_here():
+        return
+    while _gc_pending:
+        gen, pause = _gc_pending.popleft()
+        _m.PROCESS_GC_COLLECTIONS.labels(gen=gen).inc()
+        if pause is not None:
+            _m.PROCESS_GC_PAUSE.observe(pause)
 
 
 def install_gc_telemetry() -> bool:

@@ -72,7 +72,10 @@ class _Metric:
         self.name = name
         self.help = help
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
+        # reentrant, so that `held_here` can tell whether this thread holds
+        # it (a GC callback that records into a family runs on whatever
+        # thread a collection starts on, maybe one inside this lock)
+        self._lock = threading.RLock()
         self._children: dict[tuple[str, ...], object] = {}
         reg = registry if registry is not None else REGISTRY
         reg.register(self)
@@ -108,6 +111,11 @@ class _Metric:
     def samples(self) -> list[tuple[tuple[str, ...], object]]:
         with self._lock:
             return [(k, v.snapshot()) for k, v in self._children.items()]
+
+    def held_here(self) -> bool:
+        """Whether this thread holds the family's lock: inside one of its
+        reads or updates."""
+        return self._lock._is_owned()
 
     def sum_total(self) -> float:
         """Sum of all children's observation sums (histograms) or

@@ -55,7 +55,8 @@ from tendermint_tpu_torch.types.part_set import PartSetHeader
 from tendermint_tpu_torch.types.proposal import Proposal
 from tendermint_tpu_torch.types.tx import Txs
 from tendermint_tpu_torch.types.vote import VOTE_TYPE_PRECOMMIT, VOTE_TYPE_PREVOTE, Vote
-from tools.finality_report import build_report, load_records
+from tendermint_tpu_torch.tools.finality_report import build_report, load_records
+from tools import finality_report as J_finality_report
 
 CHAIN = "cons-test"
 
@@ -1312,7 +1313,9 @@ class TestFinalityReport:
         dp.write_text(json.dumps(dump))
         recs = load_records([str(jl), str(jl), str(dp)])
         assert len(recs) == 5  # 3 from n0 + 2 from n1, self-dedup
+        assert recs == J_finality_report.load_records([str(jl), str(jl), str(dp)])
         report = build_report(recs)
+        assert report == J_finality_report.build_report(recs)
         assert report["summary"]["nodes"] == ["n0", "n1"]
         assert report["summary"]["heights"] == 3
         assert report["summary"]["critical_path_counts"]["vote_gather"] == 5
@@ -1323,9 +1326,11 @@ class TestFinalityReport:
         recs = [_hrec(h) for h in range(1, 10)]
         assert list(build_report(recs, height=4)["heights"]) == [4]
         assert list(build_report(recs, last=2)["heights"]) == [8, 9]
+        for kwargs in ({"height": 4}, {"last": 2}):
+            assert build_report(recs, **kwargs) == J_finality_report.build_report(recs, **kwargs)
 
     def test_render_and_cli(self, tmp_path, capsys):
-        from tools import finality_report
+        from tendermint_tpu_torch.tools import finality_report
 
         jl = tmp_path / "h.jsonl"
         with open(jl, "w") as f:
@@ -1334,6 +1339,9 @@ class TestFinalityReport:
         assert finality_report.main(["--ledgers", str(jl)]) == 0
         out = capsys.readouterr().out
         assert "height 2" in out and "laggard=aabbcc" in out
+        # the repo's `tools/finality_report.py` prints the same report
+        assert J_finality_report.main(["--ledgers", str(jl)]) == 0
+        assert capsys.readouterr().out == out
 
 
 

@@ -8,7 +8,8 @@ honest nodes survive, every node on the port's `HostBatchVerifier` (a
 port consensus given no verifier takes the card's stack). The JAX
 package's `tests/test_heightlog.py` acceptance net (every committed
 height's ledger record consistent, the nodes' persisted ledgers merged
-by `tools/finality_report.py`) runs on four port validators.
+by the port's `tools/finality_report.py` as the repo's merges them) runs
+on four port validators.
 
 Across the packages: every consensus message encodes as the JAX
 reactor's does and decodes the JAX reactor's bytes (a JAX object crosses
@@ -347,7 +348,8 @@ def test_every_height_has_consistent_ledger_record(tmp_path):
 
     from tendermint_tpu_torch.telemetry import REGISTRY
     from tendermint_tpu_torch.telemetry.heightlog import HeightLedger
-    from tools.finality_report import build_report, load_records
+    from tendermint_tpu_torch.tools.finality_report import build_report, load_records, render_text
+    from tools import finality_report as J_finality_report
 
     genesis, privs = make_genesis(4, chain_id=CHAIN)
     nodes = []
@@ -391,7 +393,11 @@ def test_every_height_has_consistent_ledger_record(tmp_path):
         stop_all(nodes)
         for node in nodes:
             node.cs.height_ledger.close()
-    report = build_report(load_records([os.path.join(str(tmp_path), "node*", "heights.jsonl")]))
+    recs = load_records([os.path.join(str(tmp_path), "node*", "heights.jsonl")])
+    assert recs == J_finality_report.load_records([os.path.join(str(tmp_path), "node*", "heights.jsonl")])
+    report = build_report(recs)
+    assert report == J_finality_report.build_report(recs)
+    assert render_text(report) == J_finality_report.render_text(report)
     assert len(report["summary"]["nodes"]) == 4
     assert report["summary"]["finality_ms"]["p50"] is not None
     assert report["summary"]["critical_path_counts"]

@@ -10,7 +10,10 @@ The read path's modules (light client, state sync, RPC, the node
 provider, health, views, profiler) and the node's (config, node, cmd,
 pex, addrbook, upnp, process telemetry, replay console) exist under the
 JAX names, each the JAX module apart from docstrings and the node's
-declared differences (`DECLARED`)."""
+declared differences (`DECLARED`); so do the chaos book's and the
+operator tools' (`BOOK_MODULES`, `TOOL_MODULES`), whose tools' JAX files
+are the repo's `tools/`, and each tool runs as
+`python -m tendermint_tpu_torch.tools.<name>` without jax."""
 
 from __future__ import annotations
 
@@ -154,6 +157,10 @@ NODE_MODULES = (
     "version.py", "__main__.py", "telemetry/process.py", "config/__init__.py", "p2p/addrbook.py",
     "p2p/pex.py", "p2p/upnp.py", "node/__init__.py", "node/node.py", "consensus/replay_console.py", "cmd.py",
 )
+
+# the class `tools/loadgen.py` defines and its port imports (`testing/loadgen.py`)
+_LOADGEN = (REPO / "tools" / "loadgen.py").read_text()
+_LOADGEN_TX_FACTORY = _LOADGEN[_LOADGEN.index("class TxFactory:"):_LOADGEN.index("class Stats:")]
 
 # The node's deliberate differences from the JAX modules, as (JAX source,
 # port source) pairs: with each applied to the JAX module's text, its AST
@@ -452,6 +459,111 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         device=args.device,
     ) as net:"""),
     ),
+    # a GC collection that starts on a thread inside a read of the GC
+    # families (their lock held) is recorded with the next collection, not
+    # waited for: the JAX callback deadlocks that thread
+    "telemetry/process.py": (
+        ("""import threading
+import time
+""", """import threading
+import time
+from collections import deque
+"""),
+        ("""_gc_started_at: float | None = None
+""", """_gc_started_at: float | None = None
+_gc_pending: deque = deque()
+"""),
+        ("""    _m.PROCESS_GC_COLLECTIONS.labels(gen=str(info.get("generation", "?"))).inc()
+    if started is not None:
+        _m.PROCESS_GC_PAUSE.observe(time.perf_counter() - started)
+""", """    _gc_pending.append(
+        (str(info.get("generation", "?")), None if started is None else time.perf_counter() - started)
+    )
+    if _m.PROCESS_GC_COLLECTIONS.held_here() or _m.PROCESS_GC_PAUSE.held_here():
+        return
+    while _gc_pending:
+        gen, pause = _gc_pending.popleft()
+        _m.PROCESS_GC_COLLECTIONS.labels(gen=gen).inc()
+        if pause is not None:
+            _m.PROCESS_GC_PAUSE.observe(pause)
+"""),
+    ),
+    # the operator tools run as `python -m tendermint_tpu_torch.tools.*`:
+    # no `sys.path` edit (nor the `os` import only it used); the device
+    # report's rollup is the port's `telemetry/launchlog.py` `summarize`
+    "tools/gossip_report.py": (
+        ("""import urllib.request
+
+import os
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+""", """import urllib.request
+"""),
+    ),
+    "tools/device_report.py": (
+        ("""import urllib.request
+
+import os
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+""", """import urllib.request
+"""),
+    ),
+    # the load generator: its `TxFactory` is the scenario library's
+    # (`testing/loadgen.py`, held to the tool's class below), and the
+    # in-process mempool and the `--reads` walks verify on
+    # `default_verifier(--device)`
+    "tools/loadgen.py": (
+        ("""import json
+import os
+import random
+""", """import json
+import random
+"""),
+        ("sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))",
+         "from tendermint_tpu.testing.loadgen import TxFactory"),
+        (_LOADGEN_TX_FACTORY, ""),
+        ("    verifier = default_verifier()\n", "    verifier = default_verifier(args.device)\n"),
+        ("""        from tendermint_tpu.rpc.client import HTTPClient
+""", """        from tendermint_tpu.rpc.client import HTTPClient
+        from tendermint_tpu.services.verifier import default_verifier
+"""),
+        ("""            source=NodeProvider(HTTPClient(target)),
+        )""", """            source=NodeProvider(HTTPClient(target)),
+            verifier=default_verifier(args.device),
+        )"""),
+        ("""                    "verify-to-height walk (fresh client bootstrap)")
+""", """                    "verify-to-height walk (fresh client bootstrap)")
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+"""),
+    ),
+    # the state-sync demo: no `sys.path` edit and no JAX_PLATFORMS
+    # default; its serving net and its joiner take `--device`, as
+    # `nemesis_demo`'s nets do
+    "tools/statesync_demo.py": (
+        ("""import json
+import os
+import sys
+""", """import json
+import sys
+"""),
+        ("""sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+""", ""),
+        ("""    ap.add_argument("--no-corruption", action="store_true")
+""", """    ap.add_argument("--no-corruption", action="store_true")
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+"""),
+        ("""        node_factory=Nemesis.full_node_factory(config_mutator=serving),
+    ) as net:""", """        node_factory=Nemesis.full_node_factory(config_mutator=serving),
+        device=args.device,
+    ) as net:"""),
+        ("""            config_mutator=joining,
+        )""", """            config_mutator=joining,
+            device=args.device,
+        )"""),
+    ),
     # the package also exports the fixtures the port's tests and
     # `chip_smoke.py` share (`testing/fixtures.py`)
     "testing/__init__.py": (
@@ -472,11 +584,18 @@ BOOK_MODULES = (
 )
 
 
+# the operator tools, whose JAX files are the repo's `tools/` too
+TOOL_MODULES = (
+    "tools/finality_report.py", "tools/trace_timeline.py", "tools/contention_report.py", "tools/gossip_report.py",
+    "tools/device_report.py", "tools/loadgen.py", "tools/statesync_demo.py",
+)
+
+
 def _jax_file(rel: str) -> pathlib.Path:
     return REPO / rel if rel.startswith("tools/") else REPO / "tendermint_tpu" / rel
 
 
-@pytest.mark.parametrize("rel", NODE_MODULES + BOOK_MODULES)
+@pytest.mark.parametrize("rel", NODE_MODULES + BOOK_MODULES + TOOL_MODULES)
 def test_node_modules_stand_where_the_jax_package_has_them(rel):
     port, jax = PORT / rel, _jax_file(rel)
     assert port.is_file() and jax.is_file()
@@ -484,7 +603,7 @@ def test_node_modules_stand_where_the_jax_package_has_them(rel):
     assert not bad, bad
 
 
-@pytest.mark.parametrize("rel", NODE_MODULES + BOOK_MODULES)
+@pytest.mark.parametrize("rel", NODE_MODULES + BOOK_MODULES + TOOL_MODULES)
 def test_node_modules_are_the_jax_modules_apart_from_the_declared_differences(rel):
     text = _jax_file(rel).read_text()
     for jax_src, port_src in DECLARED.get(rel, ()):
@@ -616,6 +735,64 @@ def test_the_book_entry_points_run_as_modules_and_import_no_jax(tool, tmp_path):
     bad = sorted(m for m in imported if _forbidden(m) or _is(m, "cryptography") or _is(m, "grpc"))
     assert not bad, bad
     assert ("solo  PASS" if tool == "scenario_run" else "all invariants held") in out.stdout, out.stdout[-2000:]
+
+
+def _tool_inputs(tool: str, tmp_path) -> list:
+    """A tool's arguments on one-record inputs under `tmp_path`."""
+    import json
+
+    rec = {
+        "launches": {"kind": "verify", "backend": "device", "rows": 4, "t": 1.0, "total_s": 0.5, "queue": "coalescer"},
+        "heights": {"height": 1, "node": "n0", "t_commit": 1.0, "finality_s": 0.5, "critical_path": "vote_gather",
+                    "phases": {"propose": {"s": 0.1, "wait_s": 0.1, "work_s": 0.0}}},
+        "spans": {"name": "mempool.admission", "start": 1.0, "end": 1.5, "attrs": {"trace": "ab" * 8}},
+        "gossip": {"channels": {"cns_vote": {"send_msgs": 1, "send_bytes": 9, "recv_msgs": 1, "recv_bytes": 9}},
+                   "kinds": {}, "redundant": {}},
+        "profile": {"profile": {"profiler": {"samples": 2, "hz": 97, "subsystems": {
+            "consensus": {"on_cpu": 1, "blocked": 1, "blocked_by": {"lock": 1}}}}, "locks": {"locks": []},
+            "queues": {}}},
+    }
+    for name, value in rec.items():
+        (tmp_path / f"{name}.json").write_text(json.dumps(value) + "\n")
+    # a JSONL ledger of two records (a file of one would read as a dump)
+    (tmp_path / "launches.json").write_text(json.dumps(rec["launches"]) + "\n" + json.dumps(
+        dict(rec["launches"], t=2.0)) + "\n")
+    return {
+        "finality_report": ["--ledgers", str(tmp_path / "heights.json")],
+        "trace_timeline": ["--spans", str(tmp_path / "spans.json"), "--trace", "ab" * 8],
+        "contention_report": ["--dump", str(tmp_path / "profile.json")],
+        "gossip_report": ["--dumps", str(tmp_path / "gossip.json")],
+        "device_report": ["--ledgers", str(tmp_path / "launches.json")],
+        "loadgen": ["--rate", "20", "--duration", "0.2", "--threads", "2", "--device", "cpu"],
+        "statesync_demo": ["--nodes", "1", "--height", "3", "--interval", "2", "--device", "cpu"],
+    }[tool]
+
+
+# what each tool prints once it has run to its end
+_TOOL_DONE = {
+    "finality_report": "summary: 1 heights x 1 nodes", "trace_timeline": "1 entries", "contention_report": "verdict:",
+    "gossip_report": "verdict: top waste source", "device_report": "verdict: top waste source",
+    "loadgen": '"resolved": 4', "statesync_demo": '"restores_ok": 1.0',
+}
+
+
+@pytest.mark.parametrize("tool", [rel[len("tools/"):-len(".py")] for rel in TOOL_MODULES])
+def test_the_operator_tools_run_as_modules_and_import_no_jax(tool, tmp_path):
+    """`python -m tendermint_tpu_torch.tools.<tool>` (with `--device cpu`
+    where it verifies) runs to its end (exit code 0) on small inputs, and
+    `-X importtime` lists no module of jax, of the JAX package, of
+    `cryptography` or `grpc`."""
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", f"tendermint_tpu_torch.tools.{tool}", *_tool_inputs(tool, tmp_path)],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    imported = {line.rsplit("|", 1)[1].strip() for line in out.stderr.splitlines()
+                if line.startswith("import time:") and line.count("|") == 2}
+    assert "tendermint_tpu_torch.tools" in imported
+    bad = sorted(m for m in imported if _forbidden(m) or _is(m, "cryptography") or _is(m, "grpc"))
+    assert not bad, bad
+    assert _TOOL_DONE[tool] in out.stdout, out.stdout[-2000:]
 
 
 # every name the port's tests and `chip_smoke.py` imported from the

@@ -7,7 +7,8 @@ JAX wrapper stack and the port's over the same fake primary and one
 seeded sequence (a commit, a window, a flat batch, two hashes, an
 injected fault), their records equal field for field except times; and
 `tools/device_report.py` reading the port's ledger as it reads the JAX
-package's. Tolerance: exact, except for times."""
+package's, and the port's own `device_report` printing what it prints.
+Tolerance: exact, except for times."""
 
 from __future__ import annotations
 
@@ -635,10 +636,13 @@ def test_jax_and_port_ledgers_agree_record_for_record(tmp_path, monkeypatch):
     assert not any(r.get("error") for r in p_recs)
 
 
-def test_device_report_reads_the_port_ledger(tmp_path, monkeypatch):
+def test_device_report_reads_the_port_ledger(tmp_path, monkeypatch, capsys):
     """`tools/device_report.py --ledgers <jsonl> --json` over the port's
     ledger gives the JAX ledger's per-kind waterfall (exact, except the
-    seconds) and verdict."""
+    seconds) and verdict; the port's own `device_report` prints and
+    writes what the repo's tool does on each ledger (exact)."""
+    from tendermint_tpu_torch.tools import device_report as P_device_report
+
     _runs, paths = _run_both(tmp_path, monkeypatch)
     reports = {}
     for pkg, path in paths.items():
@@ -650,6 +654,11 @@ def test_device_report_reads_the_port_ledger(tmp_path, monkeypatch):
         assert res.returncode == 0, res.stderr[-2000:]
         assert "verdict:" in res.stdout
         reports[pkg] = json.loads(out.read_text())
+        out.unlink()
+        capsys.readouterr()
+        assert P_device_report.main(["--ledgers", path, "--json", str(out)]) == 0
+        assert capsys.readouterr().out == res.stdout
+        assert json.loads(out.read_text()) == reports[pkg]
 
     def waterfall(rep):
         return {kind: {k: v for k, v in agg.items() if k not in ("stages_s", "total_s", "compile_s", "device_put_s")}

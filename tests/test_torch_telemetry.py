@@ -96,6 +96,49 @@ def test_prometheus_text_and_dict_equal_the_jax_registry():
     assert p_reg.counter_value("tendermint_t_gauge") == j_reg.counter_value("tendermint_t_gauge") == 2.25
 
 
+# a registry read (its family's lock held) during which a GC collection
+# starts on the reading thread: gc.collect() stands in for the allocation
+_GC_IN_A_READ = """
+import gc, sys, threading
+from {pkg}.telemetry import metrics
+from {pkg}.telemetry.process import install_gc_telemetry
+
+install_gc_telemetry()
+pause = metrics.PROCESS_GC_PAUSE
+count0 = pause.value["count"]
+done = threading.Event()
+
+def reader():
+    with pause._lock:
+        gc.collect()
+    done.set()
+
+threading.Thread(target=reader, daemon=True).start()
+if not done.wait(5):
+    print("hung")
+    sys.stdout.flush()
+    import os
+    os._exit(0)
+gc.collect()
+print("recorded", pause.value["count"] - count0)
+"""
+
+
+def test_a_collection_inside_a_registry_read_is_recorded_later():
+    """The JAX package's GC callback waits for the GC families' lock even
+    when its own thread holds it (a `/metrics` scrape or `dump_telemetry`
+    that allocates while it serializes them), so that thread hangs for
+    good; the port's records such a collection with the next one."""
+    outs = {}
+    for pkg in ("tendermint_tpu", "tendermint_tpu_torch"):
+        out = subprocess.run([sys.executable, "-c", _GC_IN_A_READ.format(pkg=pkg)], cwd=REPO, capture_output=True,
+                             text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
+        assert out.returncode == 0, out.stderr[-2000:]
+        outs[pkg] = out.stdout.split()
+    assert outs["tendermint_tpu"] == ["hung"]
+    assert outs["tendermint_tpu_torch"] == ["recorded", "2"]
+
+
 def test_port_catalog_renders_and_keeps_the_jax_names():
     """The port's catalog renders whole, and every family it shares with
     the JAX catalog has the same type and label names."""
